@@ -1,0 +1,32 @@
+"""Inference step: raw-pixel images -> fixed-size detections.
+
+Counterpart of ``dafne_tpu/engine/trainer.py::make_eval_step`` (without
+int8): the model forward, then ``decode_detections``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from dafne_torch.ops.postprocess import DecodeSpec, decode_detections
+
+
+def make_eval_step(model, cfg, image_hw: Tuple[int, int]) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build ``eval_step(images [B, H, W, 3], scale_xy [B, 2] = None)``.
+
+    Images are raw pixels on the model's device, H x W = `image_hw`.  The
+    step returns the dict of ``decode_detections``: [B, POST_NMS_TOPK_TEST]
+    corners, hboxes, scores, classes, centerness, locations and valid."""
+    spec = DecodeSpec.from_config(cfg)
+    image_hw = tuple(image_hw)
+
+    @torch.inference_mode()
+    def eval_step(images: torch.Tensor, scale_xy: Optional[torch.Tensor] = None):
+        if images.ndim != 4 or tuple(images.shape[1:3]) != image_hw or images.shape[3] != 3:
+            raise ValueError(f"expected images [B, {image_hw[0]}, {image_hw[1]}, 3], "
+                             f"got {tuple(images.shape)}")
+        return decode_detections(model(images), spec, scale_xy)
+
+    return eval_step

@@ -1,0 +1,80 @@
+"""Quadrilateral geometry primitives on torch tensors.
+
+Counterpart of ``dafne_tpu/geometry/quads.py``.  Quads are ``[..., 8]``
+corner arrays ``(x0, y0, ..., x3, y3)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quad_signed_area(corners: torch.Tensor) -> torch.Tensor:
+    """Signed shoelace area of quads [..., 8]; positive for CCW order."""
+    c = corners.reshape(corners.shape[:-1] + (4, 2))
+    nxt = torch.roll(c, shifts=-1, dims=-2)
+    return 0.5 * torch.sum(c[..., 0] * nxt[..., 1] - nxt[..., 0] * c[..., 1], -1)
+
+
+def quad_area(corners: torch.Tensor) -> torch.Tensor:
+    """Absolute shoelace area of quads [..., 8]."""
+    return quad_signed_area(corners).abs()
+
+
+def enclosing_hbox(corners: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned enclosing box (xmin, ymin, xmax, ymax) of quads [..., 8]."""
+    xs = corners[..., 0::2]
+    ys = corners[..., 1::2]
+    return torch.stack(
+        [xs.amin(-1), ys.amin(-1), xs.amax(-1), ys.amax(-1)], dim=-1
+    )
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none is)."""
+    return torch.argmax(mask.to(torch.int8), dim=-1)
+
+
+def sort_quadrilateral(corners: torch.Tensor) -> torch.Tensor:
+    """Canonical corner order ("Algorithm 1" of the Modulated Loss paper).
+
+    The same decisions as the JAX function, element for element:
+      - p1 = the vertex with minimal x (first index on ties);
+      - p3 = the first remaining vertex whose line through p1 separates the
+        other two (the diagonal partner), else the first remaining vertex;
+      - p2 = the leftover candidate a if cross(p3-p1, a-p1) > 0, or if both
+        leftovers have a non-positive cross; else b.  p4 is the other one.
+    The JAX version permutes with one-hot matmuls (a TPU workaround); here
+    the permutation is a gather, which gives the same values.
+    """
+    shape = corners.shape
+    c = corners.reshape(-1, 4, 2)
+    ar4 = torch.arange(4, device=c.device)
+
+    left = torch.argmin(c[:, :, 0], dim=1)
+    p1 = torch.gather(c, 1, left[:, None, None].expand(-1, 1, 2))  # [N, 1, 2]
+    v = c - p1
+    # cross[n, j, k] = cross2d(v_j, v_k)
+    cross = v[:, :, None, 0] * v[:, None, :, 1] - v[:, :, None, 1] * v[:, None, :, 0]
+
+    not_left = ar4[None, :] != left[:, None]  # [N, 4]
+    eye = torch.eye(4, dtype=torch.bool, device=c.device)
+    others = not_left[:, None, :] & ~eye[None]  # [N, j, k]
+    pair_prod = torch.where(others, cross, torch.ones_like(cross)).prod(dim=2)
+    cond = (pair_prod < 0.0) & not_left
+    idx_p3 = torch.where(cond.any(dim=1), _first_true(cond), _first_true(not_left))
+
+    leftover = not_left & (ar4[None, :] != idx_p3[:, None])  # two True
+    idx_a = _first_true(leftover)
+    idx_b = (ar4[None, :] * leftover).sum(dim=1) - idx_a
+
+    cross_p3 = torch.gather(cross, 1, idx_p3[:, None, None].expand(-1, 1, 4))[:, 0]
+    ca = torch.gather(cross_p3, 1, idx_a[:, None])[:, 0]
+    cb = torch.gather(cross_p3, 1, idx_b[:, None])[:, 0]
+    take_a = (ca > 0.0) | ((ca <= 0.0) & (cb <= 0.0))
+    idx_p2 = torch.where(take_a, idx_a, idx_b)
+    idx_p4 = torch.where(take_a, idx_b, idx_a)
+
+    perm = torch.stack([left, idx_p2, idx_p3, idx_p4], dim=1)  # [N, 4]
+    out = torch.gather(c, 1, perm[:, :, None].expand(-1, 4, 2))
+    return out.reshape(shape)

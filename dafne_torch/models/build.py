@@ -1,0 +1,93 @@
+"""Model builder: config -> OneStageDetector, counterpart of
+``dafne_tpu/models/build.py`` for the ResNet backbone."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from dafne_torch.models.fpn import FPN
+from dafne_torch.models.head import DAFNeHead
+from dafne_torch.models.layers import Conv2d
+from dafne_torch.models.one_stage_detector import OneStageDetector
+from dafne_torch.models.resnet import ResNet
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None) -> OneStageDetector:
+    """Build the detector of a config on `device`, in eval mode, with
+    weights drawn from `generator` (a seeded CPU generator) by the JAX
+    package's initializers; load trained weights over them with
+    ``load_state_dict``."""
+    if cfg.MODEL.META_ARCHITECTURE != "OneStageDetector":
+        raise ValueError(f"Unknown MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}")
+    unported = {
+        "MODEL.BACKBONE.NAME": cfg.MODEL.BACKBONE.NAME != "build_dafne_resnet_fpn_backbone",
+        "MODEL.BACKBONE.ANTI_ALIAS": cfg.MODEL.BACKBONE.ANTI_ALIAS,
+        "MODEL.RESNETS.NORM": cfg.MODEL.RESNETS.NORM != "FrozenBN",
+        "MODEL.RESNETS.RES5_DILATION": cfg.MODEL.RESNETS.RES5_DILATION != 1,
+        "MODEL.TOP_MODULE": bool(cfg.MODEL.TOP_MODULE.NAME),
+    }
+    for key, bad in unported.items():
+        if bad:
+            raise NotImplementedError(f"{key} setting not ported yet")
+    r = cfg.MODEL.RESNETS
+    d = cfg.MODEL.DAFNE
+    backbone = ResNet(
+        depth=r.DEPTH, out_features=r.OUT_FEATURES, num_groups=r.NUM_GROUPS,
+        width_per_group=r.WIDTH_PER_GROUP, stem_out_channels=r.STEM_OUT_CHANNELS,
+        res2_out_channels=r.RES2_OUT_CHANNELS, stride_in_1x1=r.STRIDE_IN_1X1,
+    )
+    channels = {f"res{i}": r.RES2_OUT_CHANNELS * 2 ** (i - 2) for i in range(2, 6)}
+    fpn = FPN(
+        channels, in_features=r.OUT_FEATURES, out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
+        top_block={2: "p6p7", 1: "p6", 0: ""}[d.TOP_LEVELS], fuse_type=cfg.MODEL.FPN.FUSE_TYPE,
+    )
+    head = DAFNeHead(
+        num_classes=d.NUM_CLASSES, num_levels=len(d.IN_FEATURES),
+        in_channels=cfg.MODEL.FPN.OUT_CHANNELS, num_cls_convs=d.NUM_CLS_CONVS,
+        num_box_convs=d.NUM_BOX_CONVS, num_share_convs=d.NUM_SHARE_CONVS, norm=d.NORM,
+        use_scale=d.USE_SCALE, prior_prob=d.PRIOR_PROB, corner_prediction=d.CORNER_PREDICTION,
+        corner_tower_on_center_tower=d.CORNER_TOWER_ON_CENTER_TOWER,
+        merge_corner_center_pred=d.MERGE_CORNER_CENTER_PRED, centerness=d.CENTERNESS,
+        ctr_on_reg=d.CTR_ON_REG, use_deformable=d.USE_DEFORMABLE, use_relu=d.USE_RELU,
+    )
+    model = OneStageDetector(
+        backbone, fpn, head, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, d.IN_FEATURES,
+        dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE],
+    )
+    init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def init_weights(model: OneStageDetector, generator: torch.Generator) -> None:
+    """The JAX package's initializers: backbone convs He-normal on fan-out
+    (the stem LeCun-normal), FPN convs uniform on fan-in, head convs
+    normal(0.01) with zero bias and the focal prior on the class bias."""
+    for name, m in model.named_modules():
+        if not isinstance(m, Conv2d):
+            continue
+        w = m.weight
+        fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+        fan_out = w.shape[0] * w.shape[2] * w.shape[3]
+        if name == "backbone.stem_conv1":
+            w.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
+        elif name.startswith("backbone."):
+            w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+        elif name.startswith("fpn."):
+            bound = math.sqrt(3.0 / fan_in)
+            w.uniform_(-bound, bound, generator=generator)
+        else:
+            w.normal_(0.0, 0.01, generator=generator)
+        if m.bias is not None:
+            m.bias.zero_()
+    model.head.cls_logits.bias.fill_(model.head.prior_bias)
+    for m in model.modules():
+        if isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()

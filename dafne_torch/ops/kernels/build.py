@@ -1,0 +1,72 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``dafne_torch/csrc/<name>.cu`` compiles into its own shared library
+with a plain C interface, under ``dafne_torch/csrc/build/`` (listed in
+``.gitignore``).  A library's file name carries a hash of its source and
+flags, so an edited source rebuilds and an unchanged one loads as it is.
+Nothing is built at import: the first call that needs a kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # no multiply-add contraction: the kernels keep the plain versions'
+    # rounding, op for op, so their outputs are bit-equal
+    "-fmad=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless it is built already.  Returns nvcc's
+    output (with ptxas's register report), or "" when nothing was built."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    if name not in _LIBS:
+        build(name)
+        _LIBS[name] = ctypes.CDLL(_lib_path(name))
+    return _LIBS[name]

@@ -1,0 +1,43 @@
+"""Convert the JAX package's parameter tree into the port's state dict.
+
+The port's module names follow the flax tree, so the mapping is by name:
+conv ``kernel`` [kh, kw, in, out] (HWIO) becomes ``weight`` [out, in, kh, kw]
+(OIHW), GroupNorm ``scale`` becomes ``weight``, and the FrozenBN leaves and
+``head/scales`` keep their names.  The input is the flax tree as nested
+dicts of numpy arrays (``flax.core.unfreeze`` + ``np.asarray`` on the caller's
+side); nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _flatten(v, path + ".")
+        else:
+            yield path, v
+
+
+def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax param tree {"backbone": {...}, "fpn": {...}, "head": {...}} ->
+    the port's state dict, to load with ``strict=True``."""
+    out = {}
+    for path, value in _flatten(params):
+        a = np.asarray(value, dtype=np.float32)
+        module, _, leaf = path.rpartition(".")
+        if leaf == "kernel":
+            if a.ndim != 4:
+                raise ValueError(f"{path}: expected an HWIO conv kernel, got shape {a.shape}")
+            out[f"{module}.weight"] = torch.from_numpy(a.transpose(3, 2, 0, 1).copy())
+        elif leaf == "scale":
+            out[f"{module}.weight"] = torch.from_numpy(a.copy())
+        else:
+            out[path] = torch.from_numpy(a.copy())
+    return out

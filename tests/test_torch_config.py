@@ -1,0 +1,65 @@
+"""Port's config copy vs the JAX package's, and the port's import rule."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+from dafne_tpu.config import get_cfg as jax_get_cfg
+
+import dafne_torch
+from dafne_torch.config import get_cfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _leaves(node, prefix=""):
+    for k, v in node.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def test_every_port_default_equals_jax_default():
+    jax_cfg = jax_get_cfg()
+    leaves = dict(_leaves(get_cfg()))
+    assert "TPU.NMS_MAX_CANDIDATES" in leaves and "TPU.COMPUTE_DTYPE" in leaves
+    for key, value in leaves.items():
+        node = jax_cfg
+        for part in key.split("."):
+            node = node[part]
+        assert node == value, key
+
+
+@pytest.mark.parametrize("recipe", ["dota-1.0/1024.yaml", "hrsc/base.yaml"])
+def test_recipes_merge_like_jax(recipe):
+    path = os.path.join(ROOT, "configs", recipe)
+    jax_cfg, cfg = jax_get_cfg(), get_cfg()
+    jax_cfg.merge_from_file(path)
+    cfg.merge_from_file(path)
+    for key, value in _leaves(get_cfg()):
+        a, b = cfg, jax_cfg
+        for part in key.split("."):
+            a, b = a[part], b[part]
+        assert a == b, key
+
+
+def test_port_imports_nothing_of_jax():
+    """Every dafne_torch module and chip_smoke import with jax, flax,
+    dafne_tpu, cv2 and yaml blocked."""
+    modules = [m.name for m in pkgutil.walk_packages(dafne_torch.__path__, "dafne_torch.")]
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'dafne_tpu', 'cv2', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {modules + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(modules) >= 20

@@ -20,7 +20,21 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   5. the kernels against their plain versions on the main path's own NMS
      inputs, with times and bounds; and a small float32 reference check:
      the same narrow model on the card and on the CPU (plain versions) must
-     give the same detections.
+     give the same detections;
+  6. the assignment kernel (K3) against its plain version at B = 8,
+     K = 21 824 locations (a 1024^2 canvas), M = 256 gt slots, on the packed
+     gts of synthetic train scenes, on 256 valid slots and on duplicated
+     gts (ties): min_area bit-equal and argmin equal;
+  7. the training path: engine/train_loop.py::do_train at full width (the
+     DOTA-1.0 1024 recipe, batch 8, bf16 compute with f32 params, flips and
+     90-degree rotations), 3 warm-up steps, then TRAIN_STEPS timed steps in
+     which K3 must launch once per step and every loss must be finite; a
+     split of one step on CUDA events and peak memory;
+  8. 30 steps on one fixed batch (warm-up off, BASE_LR 0.001): the mean
+     of the last 5 total losses must be below that of the first 5;
+  9. the narrow float32 model, batch 2 at 256^2, one train step on the card
+     (kernel) and on the CPU (plain): labels equal on >= 99.9% of the
+     locations, every loss within 1e-4 relative, params within atol 1e-5.
 
 The line before the last holds one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Every time printed is
@@ -29,12 +43,15 @@ measured in this run, on the card named by the nvidia-smi line.
 
 from __future__ import annotations
 
+import copy
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,11 +65,40 @@ HBM_BYTES_PER_S = 3.35e12
 # its own, issued at most once per FP32 lane per cycle: half that rate.
 F32_OPS_NO_FMA = F32_FLOPS / 2
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8  # main-path batch, and the batch of the kernel checks
 N_NMS = 4096  # TPU.NMS_MAX_CANDIDATES: the NMS size of the main path
 CANVAS = 1024  # the DOTA-1.0 1024 recipe's test canvas
 N_SCENES = 16  # distinct synthetic requests, sent round-robin
 WINDOWS, WINDOW_BATCHES = 3, 10  # timed windows of the main path
+M_GT = 256  # TPU.MAX_INSTANCES: gt slots per image on the training path
+N_TRAIN_SCENES = 16  # synthetic 1024^2 train records
+WARMUP_STEPS, TRAIN_STEPS = 3, 20  # training path: untimed, then timed steps
+OVERFIT_STEPS = 30
+# the recipe's LR during its warm-up (BASE_LR 0.01 x WARMUP_FACTOR 0.1): from
+# random weights the full-width model diverges at 0.01 without warm-up
+OVERFIT_LR = 0.001
+NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
+    "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
+    "TPU.COMPUTE_DTYPE", "float32",
+]
+
+# the DOTA-1.0 1024 recipe (configs/dota-1.0/1024.yaml over 600.yaml) as
+# overrides, since the card has no PyYAML; the recipe's global batch of 8
+# runs on the one card (REFERENCE_WORLD_SIZE 0: no rescaling to 1 GPU)
+DOTA_1024 = [
+    "MODEL.DAFNE.NUM_CLASSES", "15", "MODEL.DAFNE.CENTERNESS_ALPHA", "5",
+    "MODEL.DAFNE.LOSS_LAMBDA.CLS", "10.0", "MODEL.DAFNE.LOSS_LAMBDA.CORNERS", "1.0",
+    "MODEL.DAFNE.LOSS_LAMBDA.CTR", "1.0",
+    "DATALOADER.SAMPLER_TRAIN", "RepeatFactorTrainingSampler",
+    "DATALOADER.REPEAT_THRESHOLD", "0.2",
+    "SOLVER.REFERENCE_WORLD_SIZE", "0", "SOLVER.IMS_PER_BATCH", str(BATCH),
+    "SOLVER.BASE_LR", "0.01", "SOLVER.STEPS", "(60000, 80000)", "SOLVER.MAX_ITER", "90000",
+    "SOLVER.WARMUP_FACTOR", "0.1", "SOLVER.WARMUP_ITERS", "2000",
+    "INPUT.MIN_SIZE_TRAIN", "(1024,)", "INPUT.MAX_SIZE_TRAIN", "1024",
+    "INPUT.MAX_SIZE_TEST", "1024", "INPUT.ROTATION_AUG_ANGLES", "[0.0, 90.0, 180.0, 270.0]",
+]
 
 
 def log(*args):
@@ -152,20 +198,95 @@ def greedy_bound(keep, n):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def assign_bound(k, gt_valid, m):
+    """((bound ms, bound_by), valid pairs, ops bound ms without FMA): the
+    larger of the f32 work these inputs need (OPS_PER_PAIR for every
+    (location, valid gt) pair) over F32_FLOPS and the bytes (20 per
+    location for its point, stride and size range, 53 per gt slot, 8 per
+    location and image written) over the card's memory rate."""
+    from dafne_torch.ops.kernels.assign import OPS_PER_PAIR
+
+    b = gt_valid.shape[0]
+    pairs = k * int(gt_valid.sum())
+    t_ops = pairs * OPS_PER_PAIR / F32_FLOPS * 1e3
+    t_bytes = (k * 20 + b * m * 53 + b * k * 8) / HBM_BYTES_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    return bound, pairs, pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3
+
+
+def full_gts(rng, b, m):
+    """gt tensors on the card with all m slots valid: rotated rectangles of
+    DOTA-like sizes, canonically sorted."""
+    from dafne_torch.geometry.quads import enclosing_hbox, quad_area, sort_quadrilateral
+
+    corners = sort_quadrilateral(torch.from_numpy(random_quads(rng, b, m))).cuda()
+    return {"gt_corners": corners, "gt_hbox": enclosing_hbox(corners).contiguous(),
+            "gt_classes": torch.from_numpy(rng.randint(0, 15, (b, m)).astype(np.int32)).cuda(),
+            "gt_area": quad_area(corners).contiguous(),
+            "gt_valid": torch.ones((b, m), dtype=torch.bool, device="cuda")}
+
+
+def check_assign(spec, tables, g, what, card):
+    """K3 against its plain version on the gts `g`: raises unless min_area
+    is bit-equal and argmin equal.  Returns (kernel ms, plain ms, bound ms,
+    bound_by, max |min_area diff|, (min_area, argmin))."""
+    from dafne_torch.ops.kernels import assign as A
+
+    _, locations, loc_strides, size_ranges = tables
+    args = (locations, loc_strides, size_ranges, g["gt_corners"], g["gt_hbox"], g["gt_area"],
+            g["gt_valid"], spec)
+    km, ka = A.assign_argmin_cuda(*args)
+    pm, pa = A.assign_argmin_plain(*args)
+    torch.cuda.synchronize()
+    err = float((km - pm).abs().max())
+    arg_diff = int((ka != pa).sum())
+    if not torch.equal(km, pm) or arg_diff:
+        raise SystemExit(f"assignment kernel disagrees with its plain version on {what}: "
+                         f"max |min_area diff| {err}, {arg_diff} argmin differ")
+    k, m = locations.shape[0], g["gt_valid"].shape[1]
+    (bound, by), pairs, no_fma = assign_bound(k, g["gt_valid"], m)
+    ms = cuda_ms(lambda: A.assign_argmin_cuda(*args))
+    plain_ms = cuda_ms(lambda: A.assign_argmin_plain(*args), reps=3, warmup=1)
+    log(f"[K3 {what}] B={g['gt_valid'].shape[0]} K={k} M={m} valid_gts={int(g['gt_valid'].sum())} "
+        f"positives={int((km < A.INF).sum())} differing min_area=0 argmin=0 kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.3f} bound_ms={bound:.5f} ({by}; valid pairs {pairs}, "
+        f"{A.OPS_PER_PAIR} f32 ops each) ops_bound_no_fma_ms={no_fma:.5f} [{card}]")
+    return ms, plain_ms, bound, by, err, (km, ka)
+
+
+def gt_tensors(examples, device):
+    from dafne_torch.data.loader import GT_KEYS
+
+    return {k: torch.from_numpy(np.stack([e[k] for e in examples])).to(device) for k in GT_KEYS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from dafne_torch.config import get_cfg
+    from dafne_torch.data.loader import DataLoader
+    from dafne_torch.data.mapper import DatasetMapper
     from dafne_torch.data.synthetic import load_synthetic_gen
     from dafne_torch.engine.inference import make_eval_step
+    from dafne_torch.engine.optimizer import build_optimizer, clip_gradients_
     from dafne_torch.engine.predictor import Predictor
+    from dafne_torch.engine.train_loop import do_train, to_device
+    from dafne_torch.engine.trainer import (
+        batch_targets,
+        flatten_head,
+        make_location_tables,
+        make_train_step,
+    )
     from dafne_torch.models import build_model
+    from dafne_torch.ops.kernels import assign as A
     from dafne_torch.ops.kernels import build as kbuild
     from dafne_torch.ops.kernels import quad_nms as K
+    from dafne_torch.ops.losses import LossSpec, dafne_losses
     from dafne_torch.ops.nms import sorted_nms_inputs
+    from dafne_torch.ops.targets import AssignmentSpec
     from dafne_torch.ops.postprocess import (
         DecodeSpec,
         decode_detections,
@@ -183,11 +304,15 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build_log = kbuild.build("quad_nms")
-    log(f"[build] nvcc sm_90a quad_nms.cu: {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    sources = ("quad_nms", "assign")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        build_logs = dict(zip(sources, pool.map(kbuild.build, sources)))
+    log(f"[build] nvcc sm_90a {', '.join(f'{n}.cu' for n in sources)} in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, build_log in build_logs.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build {name}] {line.strip()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -347,11 +472,8 @@ def main() -> int:
 
     # ---- 5. small float32 reference: card (kernels) vs CPU (plain) ---------
     small = get_cfg()
-    small.merge_from_list([
-        "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
-        "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
-        "TPU.COMPUTE_DTYPE", "float32", "TPU.NMS_MAX_CANDIDATES", "1024",
-        "MODEL.DAFNE.POST_NMS_TOPK_TEST", "300",
+    small.merge_from_list(NARROW + [
+        "TPU.NMS_MAX_CANDIDATES", "1024", "MODEL.DAFNE.POST_NMS_TOPK_TEST", "300",
     ])
     ref_model = build_model(small, device="cpu", generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -377,6 +499,156 @@ def main() -> int:
     log(f"[reference] narrow R-50 256x256 f32: {matched}/{total} CPU detections matched on the card")
     if total < 100 or matched < 0.99 * total:
         raise SystemExit("the card's detections disagree with the CPU reference")
+    del model, predictor, gpu_model, ref_model, head, out, cand, s_main, s_plain
+    torch.cuda.empty_cache()
+
+    # ---- 6. assignment kernel (K3) vs plain -------------------------------
+    train_cfg = get_cfg()
+    train_cfg.merge_from_list(DOTA_1024)
+    train_cfg.OUTPUT_DIR = os.path.join(ROOT, "output", "chip_smoke_train")
+    spec = AssignmentSpec.from_config(train_cfg)
+    tables = make_location_tables((CANVAS, CANVAS), spec, device="cuda")
+    t0 = time.perf_counter()
+    train_records = load_synthetic_gen("train", N_TRAIN_SCENES, hw=CANVAS, max_boxes=96)
+    log(f"[K3] {len(train_records)} synthetic {CANVAS}x{CANVAS} train scenes made in "
+        f"{time.perf_counter() - t0:.1f} s (host set-up)")
+    mapper = DatasetMapper(train_cfg, (CANVAS, CANVAS))
+    mixes = {"train-scenes": gt_tensors(
+        [mapper(r, np.random.RandomState(i)) for i, r in enumerate(train_records[:b])], "cuda")}
+    mixes["all-256-valid"] = full_gts(rng, b, M_GT)
+    mixes["duplicated"] = {k: torch.cat([v[:, : M_GT // 2]] * 2, 1).contiguous()
+                           for k, v in mixes["all-256-valid"].items()}
+    max_err["assign_argmin"] = 0.0
+    for mix, g in mixes.items():
+        *_, err, (km, ka) = check_assign(spec, tables, g, mix, card)
+        max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
+        if mix == "duplicated" and not (ka[km < A.INF] < M_GT // 2).all():
+            raise SystemExit("assignment kernel broke a tie toward the later duplicate")
+    del mixes, km, ka
+
+    # ---- 7. training path at full width -----------------------------------
+    logging.basicConfig(level=logging.INFO, format="[%(name)s] %(message)s", stream=sys.stdout)
+    tmodel = build_model(train_cfg, device="cuda", generator=torch.Generator().manual_seed(2))
+    warm = copy.deepcopy(train_cfg)
+    warm.SOLVER.MAX_ITER = WARMUP_STEPS
+    do_train(warm, tmodel, train_records)  # cuDNN algorithm search, allocator warm-up
+    timed = copy.deepcopy(train_cfg)
+    timed.SOLVER.MAX_ITER = TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = do_train(timed, tmodel, train_records)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = A.assign_argmin_cuda.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] launches in the training-path run: {{'assign_argmin': {train_launches}}} "
+        f"for {TRAIN_STEPS} steps")
+    if train_launches != TRAIN_STEPS:
+        raise SystemExit(f"K3 launched {train_launches} times in {TRAIN_STEPS} train steps")
+    loss_keys = [k for k in last if k.startswith("loss/")]
+    if not last["loss_is_finite"] or not all(np.isfinite(last[k]) for k in loss_keys):
+        raise SystemExit(f"non-finite training loss: {last}")
+    log(f"[train] DOTA-1.0 1024 recipe, R-50 full width, bf16 compute / f32 params, batch {b}, "
+        f"{CANVAS}x{CANVAS}, M={M_GT}: {TRAIN_STEPS} steps through do_train in "
+        f"{train_s * 1e3:.1f} ms wall (host clock, synchronised; loader start included): "
+        f"step_ms={train_s * 1e3 / TRAIN_STEPS:.2f} img/s={TRAIN_STEPS * b / train_s:.2f}; "
+        f"at step {TRAIN_STEPS}: " + json.dumps({k: last[k] for k in loss_keys + ["num_pos", "lr"]})
+        + f"; peak memory {peak_gib:.2f} GiB (max_memory_allocated) [{card}]")
+
+    # one step's split, on CUDA events, over a batch from the port's loader
+    loader = DataLoader(train_cfg, train_records, b, seed=1, pad_hw=(CANVAS, CANVAS),
+                        pin_memory=True)
+    batches = iter(loader)
+    host_batch = next(batches)
+    batches.close()
+    with ThreadPoolExecutor(train_cfg.DATALOADER.NUM_WORKERS) as pool:
+        map_ms = host_ms(lambda: loader.make_batch(list(range(b)), list(range(b)), pool))
+    h2d_ms = host_ms(lambda: to_device(host_batch, "cuda"))
+    dev_batch = to_device(host_batch, "cuda")
+    optimizer, scheduler = build_optimizer(train_cfg, tmodel)
+    loss_spec = LossSpec.from_config(train_cfg)
+    names = ("forward", "assignment", "losses", "backward", "optimizer")
+    split = {k: [] for k in names}
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        out = tmodel(dev_batch["image"])
+        ev[1].record()
+        targets = batch_targets(dev_batch, spec, tables)
+        ev[2].record()
+        losses = dafne_losses(*flatten_head(out, loss_spec.num_classes), targets, loss_spec)
+        ev[3].record()
+        losses["loss/total"].backward()
+        ev[4].record()
+        clip_gradients_(optimizer, train_cfg)
+        optimizer.step()
+        scheduler.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            split[k].append(ev[i].elapsed_time(ev[i + 1]))
+    split = {f"{k}_ms": statistics.median(v) for k, v in split.items()}
+    log(f"[train] one step of batch {b}, CUDA events, median of 5: {json.dumps(split)}; "
+        f"data: map_ms={map_ms:.2f} (mapping 8 records on {train_cfg.DATALOADER.NUM_WORKERS} "
+        f"threads, host clock; the loader overlaps it with the step) h2d_ms={h2d_ms:.2f} "
+        f"[{card}]")
+    # K3's numbers for the kernel table, on this main-path batch's gts
+    k3_ms, k3_plain_ms, k3_bound, k3_by, err, _ = check_assign(spec, tables, dev_batch,
+                                                              "main-path batch", card)
+    max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
+    del tmodel, optimizer, scheduler, out, targets, losses
+    torch.cuda.empty_cache()
+
+    # ---- 8. overfit one fixed batch ----------------------------------------
+    ocfg = copy.deepcopy(train_cfg)
+    ocfg.merge_from_list(["SOLVER.WARMUP_ITERS", "0", "SOLVER.BASE_LR", str(OVERFIT_LR)])
+    omodel = build_model(ocfg, device="cuda", generator=torch.Generator().manual_seed(3)).train()
+    optimizer, scheduler = build_optimizer(ocfg, omodel)
+    step = make_train_step(omodel, ocfg, (CANVAS, CANVAS), optimizer, scheduler)
+    totals = [float(step(dev_batch)["loss/total"]) for _ in range(OVERFIT_STEPS)]
+    first5, last5 = statistics.mean(totals[:5]), statistics.mean(totals[-5:])
+    log(f"[overfit] {OVERFIT_STEPS} steps on one batch of {b}, BASE_LR {OVERFIT_LR}, no warm-up: "
+        f"mean total loss of the first 5 {first5:.4f}, of the last 5 {last5:.4f}; "
+        f"totals {[round(t, 4) for t in totals]}")
+    if not all(np.isfinite(totals)) or not last5 < first5:
+        raise SystemExit("the overfit run did not lower the loss")
+    del omodel, optimizer, scheduler, step, dev_batch
+    torch.cuda.empty_cache()
+
+    # ---- 9. one narrow float32 train step: card (kernel) vs CPU (plain) ---
+    ncfg = get_cfg()
+    ncfg.merge_from_list(DOTA_1024 + NARROW + [
+        "SOLVER.WARMUP_ITERS", "0", "INPUT.MIN_SIZE_TRAIN", "(256,)",
+        "INPUT.MAX_SIZE_TRAIN", "256", "SOLVER.IMS_PER_BATCH", "2"])
+    nmap = DatasetMapper(ncfg, (256, 256))
+    recs = load_synthetic_gen("train", 2, hw=256, max_boxes=24)
+    examples = [nmap(r, np.random.RandomState(10 + i)) for i, r in enumerate(recs)]
+    results = {}
+    cpu_model = build_model(ncfg, device="cpu", generator=torch.Generator().manual_seed(4))
+    for dev, m in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        nb = gt_tensors(examples, dev)
+        nb["image"] = torch.from_numpy(np.stack([e["image"] for e in examples])).to(dev)
+        nspec = AssignmentSpec.from_config(ncfg)
+        labels = batch_targets(nb, nspec, make_location_tables((256, 256), nspec, device=dev))[
+            "labels"].cpu()
+        optimizer, scheduler = build_optimizer(ncfg, m.train())
+        metrics = make_train_step(m, ncfg, (256, 256), optimizer, scheduler)(nb)
+        results[dev] = (labels, {k: float(v) for k, v in metrics.items()},
+                        {k: v.detach().cpu() for k, v in m.state_dict().items()})
+    (l_cpu, m_cpu, p_cpu), (l_gpu, m_gpu, p_gpu) = results["cpu"], results["cuda"]
+    same_labels = float((l_cpu == l_gpu).float().mean())
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+           for k in m_cpu if k.startswith("loss/") or k == "num_pos"}
+    p_err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    log(f"[train reference] narrow R-50 f32 batch 2 at 256x256, one step: labels equal on "
+        f"{same_labels:.6f} of {l_cpu.numel()} locations; loss relative differences "
+        f"{json.dumps(rel)}; max |param diff| after the step {p_err:.3g}; losses (CPU) "
+        f"{json.dumps({k: m_cpu[k] for k in rel})}")
+    if same_labels < 0.999 or max(rel.values()) > 1e-4 or p_err > 1e-5:
+        raise SystemExit("the card's train step disagrees with the CPU reference")
 
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
@@ -389,6 +661,10 @@ def main() -> int:
          "launches": launches["greedy_keep"],
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
+        {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
+         "replaces": "dafne_tpu/ops/pallas/assign.py:35", "launches": train_launches,
+         "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """Default keys the port reads, with the JAX package's names and values.
 
-Only the inference slice's keys live here (model, head, test-time input,
-decode budgets); ``tests/test_torch_config.py`` holds every value equal to
-the JAX package's default of the same name.
+The keys of the inference slice (model, head, test-time input, decode
+budgets) and of the training slice (solver, assignment and losses,
+train-time input and sampler); counterpart of
+``dafne_tpu/config/defaults.py``.  ``tests/test_torch_config.py`` holds
+every value equal to the JAX package's default of the same name.
 """
 
 from __future__ import annotations
@@ -12,6 +14,11 @@ from dafne_torch.config.config import CfgNode
 
 def build_defaults() -> CfgNode:
     _C = CfgNode()
+    _C.OUTPUT_DIR = "./output"
+    _C.SEED = -1
+
+    _C.DEBUG = CfgNode()
+    _C.DEBUG.NAN_CHECK = True  # raise when a written loss is not finite
 
     _C.MODEL = CfgNode()
     _C.MODEL.META_ARCHITECTURE = "OneStageDetector"
@@ -20,6 +27,7 @@ def build_defaults() -> CfgNode:
 
     _C.MODEL.BACKBONE = CfgNode()
     _C.MODEL.BACKBONE.NAME = "build_dafne_resnet_fpn_backbone"
+    _C.MODEL.BACKBONE.FREEZE_AT = 2
     _C.MODEL.BACKBONE.ANTI_ALIAS = False
 
     _C.MODEL.RESNETS = CfgNode()
@@ -68,18 +76,87 @@ def build_defaults() -> CfgNode:
     d.NUM_CLS_CONVS = 4
     d.NUM_BOX_CONVS = 4
     d.NUM_SHARE_CONVS = 0
+    # target assignment
+    d.SIZES_OF_INTEREST = [64, 128, 256, 512]
+    d.POS_RADIUS = 2.0
+    d.CENTER_SAMPLE = True
+    d.CENTER_SAMPLE_ONLY = False
+    d.COMBINE_CENTER_SAMPLE = True
+    d.ENABLE_IN_BOX_CHECK = True
+    d.ENABLE_LEVEL_SIZE_FILTERING = True
+    d.SORT_CORNERS_DATALOADER = True
+    # losses
+    d.LOSS_ALPHA = 0.25
+    d.LOSS_GAMMA = 2.0
+    d.LOSS_SMOOTH_L1_BETA = 1.0 / 9.0
+    d.ENABLE_LOSS_MODULATION = True
+    d.ENABLE_LOSS_LOG = True
+    d.LOC_LOSS_TYPE = "smoothl1"  # smoothl1 | iou | giou
+    d.CENTERNESS_ALPHA = 5
+    d.LOSS_LAMBDA_NORM = True
+    d.LOSS_LAMBDA = CfgNode()
+    d.LOSS_LAMBDA.CORNERS = 1.0
+    d.LOSS_LAMBDA.CTR = 1.0
+    d.LOSS_LAMBDA.CLS = 1.0
+    d.LOSS_LAMBDA.CENTER = 1.0
 
     _C.INPUT = CfgNode()
+    _C.INPUT.MIN_SIZE_TRAIN = (800,)
+    _C.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
+    _C.INPUT.MAX_SIZE_TRAIN = 1333
     _C.INPUT.MAX_SIZE_TEST = 1333
+    _C.INPUT.HFLIP_TRAIN = True
+    _C.INPUT.ROTATION_AUG_ANGLES = [0.0, 90.0, 180.0, 270.0]
+    _C.INPUT.ROTATION_AUG_SAMPLE_STYLE = "choice"
     _C.INPUT.RESIZE_TYPE = "shortest-edge"
+    _C.INPUT.RESIZE_HEIGHT_TRAIN = 0
+    _C.INPUT.RESIZE_WIDTH_TRAIN = 0
     _C.INPUT.RESIZE_HEIGHT_TEST = 0
     _C.INPUT.RESIZE_WIDTH_TEST = 0
+    _C.INPUT.USE_COLOR_AUGMENTATIONS = False
+
+    _C.DATALOADER = CfgNode()
+    _C.DATALOADER.NUM_WORKERS = 4
+    _C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"
+    _C.DATALOADER.REPEAT_THRESHOLD = 0.0
+    _C.DATALOADER.FILTER_EMPTY_ANNOTATIONS = True
+
+    _C.SOLVER = CfgNode()
+    _C.SOLVER.OPTIMIZER = "sgd"  # "sgd" | "adam"
+    _C.SOLVER.IMS_PER_BATCH = 16
+    _C.SOLVER.BASE_LR = 0.001
+    _C.SOLVER.MOMENTUM = 0.9
+    _C.SOLVER.NESTEROV = False
+    _C.SOLVER.WEIGHT_DECAY = 0.0001
+    _C.SOLVER.WEIGHT_DECAY_NORM = 0.0
+    _C.SOLVER.WEIGHT_DECAY_BIAS = 0.0001
+    _C.SOLVER.BIAS_LR_FACTOR = 1.0
+    _C.SOLVER.GAMMA = 0.1
+    _C.SOLVER.STEPS = (30000,)
+    _C.SOLVER.MAX_ITER = 40000
+    _C.SOLVER.WARMUP_FACTOR = 1.0 / 1000
+    _C.SOLVER.WARMUP_ITERS = 1000
+    _C.SOLVER.WARMUP_METHOD = "linear"
+    _C.SOLVER.CHECKPOINT_PERIOD = 5000
+    _C.SOLVER.REFERENCE_WORLD_SIZE = 0
+    _C.SOLVER.AMP = CfgNode()
+    _C.SOLVER.AMP.ENABLED = False  # the compute dtype is TPU.COMPUTE_DTYPE
+    _C.SOLVER.CLIP_GRADIENTS = CfgNode()
+    _C.SOLVER.CLIP_GRADIENTS.ENABLED = False
+    _C.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "value"
+    _C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    _C.SOLVER.CLIP_GRADIENTS.NORM_TYPE = 2.0
 
     # key names kept from the JAX package's TPU namespace so recipes merge
     t = _C.TPU = CfgNode()
     t.COMPUTE_DTYPE = "bfloat16"  # model compute dtype; params stay float32
+    t.MAX_INSTANCES = 256  # static per-image gt padding
     t.NMS_GROUP_CANDIDATES = 0  # >0 (per-class-group NMS) is not ported yet
     t.NMS_MAX_CANDIDATES = 4096  # static NMS input size (global score cap)
+    t.ASSIGN_IMPL = "auto"  # "pallas" (the CUDA kernel) | "xla" (plain) | "auto"
     t.IMAGE_SIZE_DIVISIBILITY = 128
+    t.PREFETCH_DEPTH = 2  # batches the train loader keeps ready
+    t.HOST_ASSIGN = False  # True is not ported and raises
+    t.TRAIN_DEVICE_AUG = "auto"  # True is not ported and raises; "auto" is off
 
     return _C

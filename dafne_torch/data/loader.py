@@ -1,0 +1,141 @@
+"""Train samplers and the prefetching batch loader.
+
+Counterpart of ``dafne_tpu/data/loader.py``: ``training_sampler``,
+``repeat_factors``, ``repeat_factor_sampler`` and ``build_sampler``
+(:28-74) give the same index streams for the same seed; ``DataLoader`` is
+the training half of the JAX loader (the same per-example seeds), yielding
+torch tensors: the uint8 canvases and the ``gt_*`` arrays stacked into one
+batch, in pinned memory when asked, ready for a non-blocking copy to the
+card.
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dafne_torch.data.mapper import DatasetMapper, pad_target_hw
+
+GT_KEYS = ("gt_corners", "gt_hbox", "gt_classes", "gt_area", "gt_valid")
+
+
+def training_sampler(n: int, seed: int = 0) -> Iterator[int]:
+    """Infinite stream of shuffled epoch permutations."""
+    rng = np.random.RandomState(seed)
+    while True:
+        for i in rng.permutation(n):
+            yield int(i)
+
+
+def repeat_factors(records: List[dict], threshold: float) -> np.ndarray:
+    """Per-image repeat factor: max over its categories of sqrt(t / freq)."""
+    n = len(records)
+    freq: Dict[int, float] = {}
+    for r in records:
+        for cat in {a["category_id"] for a in r.get("annotations", [])}:
+            freq[cat] = freq.get(cat, 0) + 1
+    for k in freq:
+        freq[k] /= n
+    factors = np.ones(n)
+    for i, r in enumerate(records):
+        cats = {a["category_id"] for a in r.get("annotations", [])}
+        if cats:
+            factors[i] = max(max(1.0, np.sqrt(threshold / freq[c])) for c in cats)
+    return factors
+
+
+def repeat_factor_sampler(records: List[dict], threshold: float, seed: int = 0) -> Iterator[int]:
+    """RepeatFactorTrainingSampler: each epoch repeats image i floor(f_i)
+    times plus once more with probability frac(f_i), shuffled."""
+    factors = repeat_factors(records, threshold)
+    floors = np.floor(factors).astype(np.int64)
+    frac = factors - floors
+    rng = np.random.RandomState(seed)
+    while True:
+        counts = floors + (rng.rand(len(records)) < frac)
+        epoch = np.repeat(np.arange(len(records)), counts)
+        rng.shuffle(epoch)
+        for i in epoch:
+            yield int(i)
+
+
+def build_sampler(cfg, records: List[dict], seed: int = 0) -> Iterator[int]:
+    if cfg.DATALOADER.SAMPLER_TRAIN == "RepeatFactorTrainingSampler":
+        return repeat_factor_sampler(records, cfg.DATALOADER.REPEAT_THRESHOLD, seed)
+    return training_sampler(len(records), seed)
+
+
+class DataLoader:
+    """Infinite train batches of `batch_size` over `records`, mapped by
+    DATALOADER.NUM_WORKERS threads and kept TPU.PREFETCH_DEPTH batches
+    ahead by a producer thread."""
+
+    def __init__(self, cfg, records: List[dict], batch_size: int, seed: int = 0,
+                 pad_hw: Optional[Tuple[int, int]] = None, pin_memory: bool = False):
+        if cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
+            records = [r for r in records if r.get("annotations")] or records
+        self.records = records
+        self.batch_size = batch_size
+        self.mapper = DatasetMapper(cfg, pad_hw or pad_target_hw(cfg, train=True))
+        self.num_workers = cfg.DATALOADER.NUM_WORKERS
+        self.prefetch = max(1, cfg.TPU.PREFETCH_DEPTH)
+        self.seed = seed
+        self.pin_memory = pin_memory
+        self.sampler = build_sampler(cfg, self.records, seed)
+
+    def make_batch(self, indices: List[int], seeds: List[int],
+                   pool: Optional[ThreadPoolExecutor] = None) -> Dict:
+        """Map records `indices` with RandomState(seeds[i]) each, rendering
+        straight into one [B, pad_h, pad_w, 3] uint8 tensor."""
+        images = torch.zeros((len(indices), self.mapper.pad_h, self.mapper.pad_w, 3),
+                             dtype=torch.uint8, pin_memory=self.pin_memory)
+        view = images.numpy()
+
+        def one(args):
+            slot, i, s = args
+            return self.mapper(self.records[i], np.random.RandomState(s), image_out=view[slot])
+
+        work = list(zip(range(len(indices)), indices, seeds))
+        examples = list(pool.map(one, work)) if pool is not None else [one(a) for a in work]
+        batch = {"image": images}
+        for k in GT_KEYS:
+            t = torch.from_numpy(np.stack([e[k] for e in examples]))
+            batch[k] = t.pin_memory() if self.pin_memory else t
+        return batch
+
+    def __iter__(self):
+        seed_counter = itertools.count(self.seed * 1_000_003 + 1)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(max(self.num_workers, 1)) as pool:
+                    while not stop.is_set():
+                        idx = [next(self.sampler) for _ in range(self.batch_size)]
+                        seeds = [next(seed_counter) % (2**31) for _ in idx]
+                        q.put(self.make_batch(idx, seeds, pool if self.num_workers > 0 else None))
+            except Exception as e:  # surface it in the consumer instead of hanging
+                q.put(e)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            try:  # unblock a producer waiting on a full queue
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass

@@ -1,0 +1,153 @@
+"""Dataset mapper for training: record dict -> static-shape example.
+
+Counterpart of the training path of ``dafne_tpu/data/mapper.py``
+(``DatasetMapper.__call__``, ``_sort_quad_np`` :26, ``_shoelace`` :68, the
+packing to ``TPU.MAX_INSTANCES`` :152-188):
+
+  augmentation (``data/transforms.py``) -> corners transformed exactly
+  -> degenerate instances dropped -> canonical corner sort
+  (SORT_CORNERS_DATALOADER) -> shoelace area -> gts padded to
+  MAX_INSTANCES, the image placed top-left on a zero (pad_h, pad_w) canvas.
+
+Records carry their image as a uint8 array (``record["image"]``): decoding
+files is not ported.  The device-side augmentation path
+(``TPU.TRAIN_DEVICE_AUG``) is not ported either.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from dafne_torch.data import transforms as T
+
+
+def _sort_quad_np(corners: np.ndarray) -> np.ndarray:
+    """Canonical corner order of quads [N, 8], the numpy mirror of
+    ``geometry.quads.sort_quadrilateral``."""
+    c = corners.reshape(-1, 4, 2)
+    n = c.shape[0]
+    if n == 0:
+        return corners
+    ar4 = np.arange(4)
+    left_idx = np.argmin(c[:, :, 0], axis=1)
+    p1 = c[np.arange(n), left_idx]
+    keep = ar4[None, :] != left_idx[:, None]
+    rem_idx = np.sort(np.where(keep, ar4[None, :], 99), axis=1)[:, :3]
+    rem = np.take_along_axis(c, rem_idx[:, :, None], axis=1)  # [N, 3, 2]
+    v = rem - p1[:, None, :]
+
+    def cr(a, b):
+        return a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]
+
+    conds = np.stack(
+        [
+            cr(v[:, 0], v[:, 1]) * cr(v[:, 0], v[:, 2]) < 0,
+            cr(v[:, 1], v[:, 0]) * cr(v[:, 1], v[:, 2]) < 0,
+            cr(v[:, 2], v[:, 0]) * cr(v[:, 2], v[:, 1]) < 0,
+        ],
+        axis=1,
+    )
+    first = np.argmax(conds, axis=1)
+    p3 = rem[np.arange(n), first]
+    sa = rem[np.arange(n), np.where(first == 0, 1, 0)]
+    sb = rem[np.arange(n), np.where(first == 2, 1, 2)]
+    diag = p3 - p1
+    ca = cr(diag, sa - p1)
+    cb = cr(diag, sb - p1)
+    take_a = (ca > 0) | ((ca <= 0) & (cb <= 0))
+    p2 = np.where(take_a[:, None], sa, sb)
+    p4 = np.where(take_a[:, None], sb, sa)
+    return np.stack([p1, p2, p3, p4], axis=1).reshape(-1, 8)
+
+
+def _shoelace(corners: np.ndarray) -> np.ndarray:
+    x = corners[:, 0::2]
+    y = corners[:, 1::2]
+    return 0.5 * np.abs((x * np.roll(y, -1, axis=1)).sum(1) - (y * np.roll(x, -1, axis=1)).sum(1))
+
+
+class DatasetMapper:
+    """Callable record -> train example (numpy arrays)."""
+
+    def __init__(self, cfg, pad_hw: Tuple[int, int]):
+        if cfg.TPU.TRAIN_DEVICE_AUG is True:
+            raise NotImplementedError("TPU.TRAIN_DEVICE_AUG=True is not ported")
+        self.cfg = cfg
+        self.pad_h, self.pad_w = pad_hw
+        self.max_inst = cfg.TPU.MAX_INSTANCES
+        self.sort_corners = cfg.MODEL.DAFNE.SORT_CORNERS_DATALOADER
+        self.color_aug = cfg.INPUT.USE_COLOR_AUGMENTATIONS
+
+    def __call__(self, record: Dict, rng: np.random.RandomState,
+                 image_out: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+        """`image_out`: an optional zeroed [pad_h, pad_w, 3] uint8 buffer (a
+        slice of the batch) to render into; the example's "image" is it."""
+        if "image" not in record:
+            raise NotImplementedError("records must carry their image: decoding is not ported")
+        img = record["image"]
+        aug = T.build_train_augmentations(self.cfg, img.shape[1], img.shape[0], rng)
+        img = aug.apply_image(img)
+        if self.color_aug:
+            img = T.apply_color_augmentations(img, rng)
+
+        annos = record.get("annotations", [])
+        corners = np.asarray([a["corners"] for a in annos], dtype=np.float64).reshape(-1, 8)
+        classes = np.asarray([a["category_id"] for a in annos], dtype=np.int32)
+        difficult = np.asarray([a.get("difficult", False) for a in annos], dtype=bool)
+        if len(corners):
+            corners = aug.apply_coords(corners.reshape(-1, 4, 2)).reshape(-1, 8)
+            # filter_empty_instances: the enclosing hbox must not be degenerate
+            xs, ys = corners[:, 0::2], corners[:, 1::2]
+            keep = (xs.max(1) - xs.min(1) > 1e-3) & (ys.max(1) - ys.min(1) > 1e-3)
+            corners, classes, difficult = corners[keep], classes[keep], difficult[keep]
+        if len(corners) and self.sort_corners:
+            corners = _sort_quad_np(corners)
+
+        n = min(len(corners), self.max_inst)
+        gt_corners = np.zeros((self.max_inst, 8), np.float32)
+        gt_hbox = np.zeros((self.max_inst, 4), np.float32)
+        gt_classes = np.zeros((self.max_inst,), np.int32)
+        gt_area = np.zeros((self.max_inst,), np.float32)
+        gt_valid = np.zeros((self.max_inst,), bool)
+        gt_difficult = np.zeros((self.max_inst,), bool)
+        if n:
+            c = corners[:n].astype(np.float32)
+            gt_corners[:n] = c
+            xs, ys = c[:, 0::2], c[:, 1::2]
+            gt_hbox[:n] = np.stack([xs.min(1), ys.min(1), xs.max(1), ys.max(1)], axis=1)
+            gt_classes[:n] = classes[:n]
+            gt_area[:n] = _shoelace(c)
+            gt_valid[:n] = True
+            gt_difficult[:n] = difficult[:n]
+
+        rh, rw = img.shape[:2]
+        if img.dtype != np.uint8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
+        if rh > self.pad_h or rw > self.pad_w:
+            raise ValueError(f"image ({rh}, {rw}) exceeds the canvas ({self.pad_h}, {self.pad_w})")
+        canvas = image_out if image_out is not None else np.zeros(
+            (self.pad_h, self.pad_w, 3), np.uint8)
+        canvas[:rh, :rw] = img
+        return {
+            "image": canvas,
+            "gt_corners": gt_corners,
+            "gt_hbox": gt_hbox,
+            "gt_classes": gt_classes,
+            "gt_area": gt_area,
+            "gt_valid": gt_valid,
+            "gt_difficult": gt_difficult,
+        }
+
+
+def pad_target_hw(cfg, train: bool) -> Tuple[int, int]:
+    """The static canvas of a config: the largest resize, rounded up to
+    TPU.IMAGE_SIZE_DIVISIBILITY."""
+    div = cfg.TPU.IMAGE_SIZE_DIVISIBILITY
+    if cfg.INPUT.RESIZE_TYPE == "both":
+        h = cfg.INPUT.RESIZE_HEIGHT_TRAIN if train else cfg.INPUT.RESIZE_HEIGHT_TEST
+        w = cfg.INPUT.RESIZE_WIDTH_TRAIN if train else cfg.INPUT.RESIZE_WIDTH_TEST
+    else:
+        h = w = cfg.INPUT.MAX_SIZE_TRAIN if train else cfg.INPUT.MAX_SIZE_TEST
+    return int(-(-h // div) * div), int(-(-w // div) * div)

@@ -9,23 +9,13 @@ image coordinates, highest score first.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from dafne_torch.data.mapper import pad_target_hw
 from dafne_torch.engine.inference import make_eval_step
-
-
-def pad_target_hw(cfg) -> Tuple[int, int]:
-    """The static test canvas of a config: the largest test resize, rounded
-    up to TPU.IMAGE_SIZE_DIVISIBILITY."""
-    div = cfg.TPU.IMAGE_SIZE_DIVISIBILITY
-    if cfg.INPUT.RESIZE_TYPE == "both":
-        h, w = cfg.INPUT.RESIZE_HEIGHT_TEST, cfg.INPUT.RESIZE_WIDTH_TEST
-    else:
-        h = w = cfg.INPUT.MAX_SIZE_TEST
-    return int(-(-h // div) * div), int(-(-w // div) * div)
 
 
 class Predictor:
@@ -34,7 +24,7 @@ class Predictor:
 
     def __init__(self, model, cfg, batch: int):
         self.batch = int(batch)
-        self.canvas_hw = pad_target_hw(cfg)
+        self.canvas_hw = pad_target_hw(cfg, train=False)
         self.device = next(model.parameters()).device
         self.step = make_eval_step(model, cfg, self.canvas_hw)
 

@@ -53,8 +53,12 @@ def _clipped_edge_integral(a, b, qv, eps: float, include_boundary: bool):
     t_low = torch.where(outside, big, t_low)
     t_high = torch.where(outside, -big, t_high)
 
-    t0 = t_low.amax(-1).clamp(min=0.0)
-    t1 = t_high.amin(-1).clamp(max=1.0)
+    # maximum/minimum, not clamp: at a tie their gradient splits in half, as
+    # jnp.maximum's does (rotated_iou_loss differentiates through here)
+    t0 = t_low.amax(-1)
+    t0 = torch.maximum(t0, torch.zeros_like(t0))
+    t1 = t_high.amin(-1)
+    t1 = torch.minimum(t1, torch.ones_like(t1))
     pa = a + t0[..., None] * d
     pb = a + t1[..., None] * d
     contrib = 0.5 * (pa[..., 0] * pb[..., 1] - pa[..., 1] * pb[..., 0])
@@ -70,7 +74,7 @@ def quad_intersection_area_clip(p: torch.Tensor, q: torch.Tensor, eps: float = 1
         k1 = (k + 1) % 4
         total = total + _clipped_edge_integral(pv[..., k, :], pv[..., k1, :], qv, eps, True)
         total = total + _clipped_edge_integral(qv[..., k, :], qv[..., k1, :], pv, eps, False)
-    return total.clamp(min=0.0)
+    return torch.maximum(total, torch.zeros_like(total))
 
 
 def quad_iou(p: torch.Tensor, q: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

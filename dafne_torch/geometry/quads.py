@@ -1,7 +1,9 @@
 """Quadrilateral geometry primitives on torch tensors.
 
 Counterpart of ``dafne_tpu/geometry/quads.py``.  Quads are ``[..., 8]``
-corner arrays ``(x0, y0, ..., x3, y3)``.
+corner arrays ``(x0, y0, ..., x3, y3)``.  The training functions
+(``point_to_line_distance`` to ``centerness_targets``, JAX file lines
+146-217) keep the JAX functions' op order.
 """
 
 from __future__ import annotations
@@ -78,3 +80,47 @@ def sort_quadrilateral(corners: torch.Tensor) -> torch.Tensor:
     perm = torch.stack([left, idx_p2, idx_p3, idx_p4], dim=1)  # [N, 4]
     out = torch.gather(c, 1, perm[:, :, None].expand(-1, 4, 2))
     return out.reshape(shape)
+
+
+def point_to_line_distance(p1, p2, x0, y0):
+    """Distance from (x0, y0) to the infinite line through p1, p2 ([..., 2]).
+    No epsilon guard: a degenerate edge gives NaN, which
+    `centerness_targets` flushes to 0."""
+    x1, y1 = p1[..., 0], p1[..., 1]
+    x2, y2 = p2[..., 0], p2[..., 1]
+    nom = ((y2 - y1) * x0 - (x2 - x1) * y0 + x2 * y1 - y2 * x1).abs()
+    denom = torch.sqrt((y2 - y1) ** 2 + (x2 - x1) ** 2)
+    return nom / denom
+
+
+def compute_abcd(corners: torch.Tensor, locations: torch.Tensor) -> torch.Tensor:
+    """[..., 4] distances from locations [..., 2] to the edges c0c1, c1c2,
+    c2c3, c3c0 of quads [..., 8] (broadcast over the leading axes)."""
+    c = corners.reshape(corners.shape[:-1] + (4, 2))
+    nxt = torch.roll(c, shifts=-1, dims=-2)
+    return point_to_line_distance(c, nxt, locations[..., None, 0], locations[..., None, 1])
+
+
+def _triangle_area(a, b, c):
+    """Area of triangles with vertices a, b, c ([..., 2])."""
+    u, v = a - c, b - c
+    return 0.5 * (u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]).abs()
+
+
+def is_in_quadrilateral(corners, quad_area_val, locations, eps: float = 1e-3):
+    """[...] bool: the four (edge, point) triangles' areas sum to no more
+    than the quad's area + eps, i.e. the point lies inside."""
+    c = corners.reshape(corners.shape[:-1] + (4, 2))
+    nxt = torch.roll(c, shifts=-1, dims=-2)
+    tri = _triangle_area(c, nxt, locations[..., None, :])
+    return ~(tri.sum(-1) > (quad_area_val + eps))
+
+
+def centerness_targets(reg_targets: torch.Tensor, alpha) -> torch.Tensor:
+    """((min/max)(0, 2) * (min/max)(1, 3)) ** (1 / alpha) over ltrb or abcd
+    4-vectors [..., 4]; NaN and infinities flush to 0."""
+    lr = reg_targets[..., 0::2]
+    tb = reg_targets[..., 1::2]
+    ctr = (lr.amin(-1) / lr.amax(-1)) * (tb.amin(-1) / tb.amax(-1))
+    ctr = ctr ** (1.0 / alpha)
+    return torch.nan_to_num(ctr, nan=0.0, posinf=0.0, neginf=0.0)

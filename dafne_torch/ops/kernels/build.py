@@ -5,6 +5,8 @@ with a plain C interface, under ``dafne_torch/csrc/build/`` (listed in
 ``.gitignore``).  A library's file name carries a hash of its source and
 flags, so an edited source rebuilds and an unchanged one loads as it is.
 Nothing is built at import: the first call that needs a kernel builds it.
+``check_cuda`` is the wrappers' check of a tensor before its pointer goes
+to a kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 import shutil
 import subprocess
 from typing import Dict
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -70,3 +74,16 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _LIBS[name] = ctypes.CDLL(_lib_path(name))
     return _LIBS[name]
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    """Raise ValueError unless `t` is a contiguous CUDA tensor of `dtype`
+    and `shape`."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

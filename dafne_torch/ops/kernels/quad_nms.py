@@ -17,6 +17,8 @@ import ctypes
 
 import torch
 
+from dafne_torch.ops.kernels.build import check_cuda, load
+
 TILE = 128  # column block of the suppression kernel; NMS pads N to a multiple
 STRIP = 64  # rows per strip
 
@@ -140,20 +142,7 @@ def strip_spans(classes: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo // TILE, (hi + TILE - 1) // TILE], -1).to(torch.int32).contiguous()
 
 
-def _check_cuda(name, t, dtype, shape):
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def _lib():
-    from dafne_torch.ops.kernels.build import load
-
     lib = load("quad_nms")
     if not getattr(lib, "_dafne_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -177,8 +166,8 @@ def suppression_matrix_cuda(corners, classes, iou_threshold: float, eps: float =
     b, n = classes.shape
     if n % TILE or b < 1:
         raise ValueError(f"suppression_matrix_cuda: need B >= 1 and N % {TILE} == 0, got {b}x{n}")
-    _check_cuda("corners", corners, torch.float32, (b, n, 8))
-    _check_cuda("classes", classes, torch.int32, (b, n))
+    check_cuda("corners", corners, torch.float32, (b, n, 8))
+    check_cuda("classes", classes, torch.int32, (b, n))
     if corners.device != classes.device:
         raise ValueError("suppression_matrix_cuda: corners and classes on different devices")
     lib = _lib()
@@ -233,8 +222,8 @@ def greedy_keep_cuda(s: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
     b, n = keep_init.shape
     if not 1 <= n <= _GREEDY_MAX_N or b < 1:
         raise ValueError(f"greedy_keep_cuda: need B >= 1 and 1 <= N <= {_GREEDY_MAX_N}, got {b}x{n}")
-    _check_cuda("s", s, torch.int8, (b, n, n))
-    _check_cuda("keep_init", keep_init, torch.bool, (b, n))
+    check_cuda("s", s, torch.int8, (b, n, n))
+    check_cuda("keep_init", keep_init, torch.bool, (b, n))
     if s.device != keep_init.device:
         raise ValueError("greedy_keep_cuda: s and keep_init on different devices")
     lib = _lib()

@@ -27,6 +27,11 @@ def test_every_port_default_equals_jax_default():
     jax_cfg = jax_get_cfg()
     leaves = dict(_leaves(get_cfg()))
     assert "TPU.NMS_MAX_CANDIDATES" in leaves and "TPU.COMPUTE_DTYPE" in leaves
+    for key in ("SOLVER.BASE_LR", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "MODEL.BACKBONE.FREEZE_AT",
+                "MODEL.DAFNE.POS_RADIUS", "MODEL.DAFNE.LOSS_LAMBDA.CLS", "INPUT.MIN_SIZE_TRAIN",
+                "DATALOADER.REPEAT_THRESHOLD", "TPU.MAX_INSTANCES", "TPU.ASSIGN_IMPL",
+                "DEBUG.NAN_CHECK", "SEED", "OUTPUT_DIR"):
+        assert key in leaves, key
     for key, value in leaves.items():
         node = jax_cfg
         for part in key.split("."):
@@ -48,12 +53,12 @@ def test_recipes_merge_like_jax(recipe):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every dafne_torch module and chip_smoke import with jax, flax,
+    """Every dafne_torch module and chip_smoke import with jax, flax, optax,
     dafne_tpu, cv2 and yaml blocked."""
     modules = [m.name for m in pkgutil.walk_packages(dafne_torch.__path__, "dafne_torch.")]
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'dafne_tpu', 'cv2', 'yaml'):\n"
+        "for m in ('jax', 'flax', 'optax', 'dafne_tpu', 'cv2', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {modules + ['chip_smoke']!r}:\n"
@@ -62,4 +67,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(modules) >= 20
+    assert len(modules) >= 30
+    for m in ("dafne_torch.ops.kernels.assign", "dafne_torch.engine.train_loop",
+              "dafne_torch.data.loader"):
+        assert m in modules

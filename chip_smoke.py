@@ -34,19 +34,45 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      of the last 5 total losses must be below that of the first 5;
   9. the narrow float32 model, batch 2 at 256^2, one train step on the card
      (kernel) and on the CPU (plain): labels equal on >= 99.9% of the
-     locations, every loss within 1e-4 relative, params within atol 1e-5.
+     locations, every loss within 1e-4 relative, params within atol 1e-5;
+ 10. the 2-D tiled suppression kernel (K2) against its plain version at
+     B = 8, N = 4096: a dense 15-class mix in score order and phase 2's
+     25%-valid class-major mix (there also against K1): S equal entry for
+     entry, with the tiles and pairs it visits;
+ 11. the eval path at full width: a checkpoint of the DOTA-1.0 1024 model
+     (seeded random weights, cls bias -2), then the CLI's --eval-only in
+     this process on N_EVAL_SCENES synthetic 1024^2 scenes with per-class-
+     group NMS (K = 512), eval batch 8: results.txt, the Task1 files and
+     test_results.csv written, K1 and greedy launched once per batch; eval
+     img/s and the evaluator's time; one batch's decode through the grouped
+     and the global-cap path with K1 and greedy inside each; the candidate
+     mix; the greedy kernel equal to the plain walk on every batch's
+     [B * G, K] S; then a replay of every batch's grouped NMS with
+     impl="pallas-2d" (K2) equal to impl="pallas", and K2 against its plain
+     version and K1 on the grouped path's own [B * G, K] inputs.  No config
+     key reaches `impl`, so the CLI never launches K2: its launches in the
+     kernels line are the replay's;
+ 12. the narrow float32 model through do_test on 8 synthetic 256^2 scenes
+     with grouped NMS, on the card (kernels) and on the CPU (plain): >= 99%
+     of the CPU detections matched, mAP within 0.1; the evaluator fed the
+     ground truth as detections gives mAP 100, and fed jittered ground truth
+     plus false positives with mixed scores an mAP strictly between 0 and
+     100.
 
-The line before the last holds one JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}.  Every time printed is
+The line before the last holds one JSON object with every kernel's numbers
+(K1's and greedy's launches from phases 4 and 11's CLI run, K3's from phase
+7, K2's from phase 11's replay); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -78,6 +104,8 @@ OVERFIT_STEPS = 30
 # the recipe's LR during its warm-up (BASE_LR 0.01 x WARMUP_FACTOR 0.1): from
 # random weights the full-width model diverges at 0.01 without warm-up
 OVERFIT_LR = 0.001
+N_EVAL_SCENES = 32  # synthetic_gen1024_val scenes through the eval CLI
+GROUP_K = 512  # TPU.NMS_GROUP_CANDIDATES of the eval path
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -147,11 +175,12 @@ def random_quads(rng, b, n, extent=1024.0):
     return np.stack(pts, -1).astype(np.float32)
 
 
-def class_major_mix(rng, b, n, n_valid, n_classes=15):
+def class_major_mix(rng, b, n, n_valid, n_classes=15, class_major=True):
     """Kernel inputs in the order NMS gives them: ascending class, invalid
-    (-1) last, corners CCW.  The valid boxes are jittered copies of n/8
-    cluster seeds and share their seed's class, so S has many nonzeros and
-    IoUs near the threshold."""
+    (-1) last, corners CCW (with `class_major` False: in the order drawn,
+    which stands for score order).  The valid boxes are jittered copies of
+    n/8 cluster seeds and share their seed's class, so S has many nonzeros
+    and IoUs near the threshold."""
     from dafne_torch.ops.nms import _as_ccw_rows
 
     seeds = random_quads(rng, b, max(n // 8, 1))
@@ -162,9 +191,10 @@ def class_major_mix(rng, b, n, n_valid, n_classes=15):
         -8, 8, (b, n_valid, 8)).astype(np.float32)
     classes = np.full((b, n), -1, np.int32)
     classes[:, :n_valid] = np.take_along_axis(seed_cls, pick, 1)
-    order = np.argsort(np.where(classes < 0, n_classes, classes), axis=1, kind="stable")
-    quads = np.take_along_axis(quads, order[..., None], 1)
-    classes = np.take_along_axis(classes, order, 1)
+    if class_major:
+        order = np.argsort(np.where(classes < 0, n_classes, classes), axis=1, kind="stable")
+        quads = np.take_along_axis(quads, order[..., None], 1)
+        classes = np.take_along_axis(classes, order, 1)
     corners = _as_ccw_rows(torch.from_numpy(quads)).cuda().contiguous()
     return corners, torch.from_numpy(classes).cuda()
 
@@ -254,6 +284,52 @@ def check_assign(spec, tables, g, what, card):
     return ms, plain_ms, bound, by, err, (km, ka)
 
 
+def check_k2(corners, classes, what, card, class_major):
+    """K2 against its plain version and, on class-major input, against K1:
+    raises unless S is equal entry for entry.  Returns (kernel ms, plain
+    ms, bound ms, bound_by)."""
+    from dafne_torch.ops.kernels import quad_nms as K
+
+    b, n = classes.shape
+    s2 = K.suppression_matrix_2d_cuda(corners, classes, 0.1)
+    sp = K.suppression_matrix_plain(corners, classes, 0.1)
+    s1 = K.suppression_matrix_cuda(corners, classes, 0.1) if class_major else s2
+    torch.cuda.synchronize()
+    diff, diff_k1 = int((s2 != sp).sum()), int((s2 != s1).sum())
+    if diff or diff_k1:
+        raise SystemExit(f"K2 disagrees on {what}: {diff} entries with its plain version, "
+                         f"{diff_k1} with K1")
+    tiles = int(K.tile_interactions(classes).sum())
+    n_tiles = n // K.TILE
+    (bound, by), pairs, no_fma = suppression_bound(classes, n)
+    ms = cuda_ms(lambda: K.suppression_matrix_2d_cuda(corners, classes, 0.1))
+    k1 = ""
+    if class_major:
+        k1 = f"K1_ms={cuda_ms(lambda: K.suppression_matrix_cuda(corners, classes, 0.1)):.4f} "
+    plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(corners, classes, 0.1), reps=3, warmup=1)
+    log(f"[K2 {what}] B={b} N={n} nonzeros={int(s2.sum())} differing_entries=0 (plain"
+        f"{', and K1' if class_major else ''}) interacting_tiles={tiles} of "
+        f"{b * n_tiles * (n_tiles + 1) // 2} on or above the diagonal, visited_pairs="
+        f"{tiles * K.TILE * K.TILE} (pairs in interacting tiles) same-class pairs {pairs} "
+        f"kernel_ms={ms:.4f} {k1}plain_ms={plain_ms:.2f} bound_ms={bound:.4f} ({by}; "
+        f"{K.OPS_PER_PAIR} f32 ops per same-class pair) ops_bound_no_fma_ms={no_fma:.4f} [{card}]")
+    return ms, plain_ms, bound, by
+
+
+def match_rate(got, want):
+    """(matched, total): how many of `want`'s detections (do_test's
+    per-image "preds") have one in `got` of the same image and class, score
+    within 1e-4 and corners within 1e-2."""
+    matched = total = 0
+    for image_id, w in want.items():
+        g = got[image_id]
+        total += len(w["scores"])
+        for c, sc, box in zip(w["classes"], w["scores"], w["corners"]):
+            matched += bool(((g["classes"] == c) & (np.abs(g["scores"] - sc) <= 1e-4)
+                             & (np.abs(g["corners"] - box).max(1) <= 1e-2)).any())
+    return matched, total
+
+
 def gt_tensors(examples, device):
     from dafne_torch.data.loader import GT_KEYS
 
@@ -267,9 +343,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from dafne_torch.config import get_cfg
+    from dafne_torch.data import get_dataset, register_all_datasets
     from dafne_torch.data.loader import DataLoader
     from dafne_torch.data.mapper import DatasetMapper
-    from dafne_torch.data.synthetic import load_synthetic_gen
+    from dafne_torch.data.synthetic import GEN_CLASSES, load_synthetic_gen
+    from dafne_torch.engine import train_loop
+    from dafne_torch.engine.checkpoint import Checkpointer
     from dafne_torch.engine.inference import make_eval_step
     from dafne_torch.engine.optimizer import build_optimizer, clip_gradients_
     from dafne_torch.engine.predictor import Predictor
@@ -285,8 +364,15 @@ def main() -> int:
     from dafne_torch.ops.kernels import build as kbuild
     from dafne_torch.ops.kernels import quad_nms as K
     from dafne_torch.ops.losses import LossSpec, dafne_losses
-    from dafne_torch.ops.nms import sorted_nms_inputs
+    from dafne_torch.evaluation import build_evaluator
+    from dafne_torch.ops.nms import (
+        grouped_nms_inputs,
+        rotated_nms_grouped_batched,
+        single_group_inputs,
+        sorted_nms_inputs,
+    )
     from dafne_torch.ops.targets import AssignmentSpec
+    from dafne_torch.tools.train import main as cli_main
     from dafne_torch.ops.postprocess import (
         DecodeSpec,
         decode_detections,
@@ -318,7 +404,7 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     b, n = BATCH, N_NMS
-    max_err = {"suppression_matrix": 0.0, "greedy_keep": 0.0}
+    max_err = {"suppression_matrix": 0.0, "greedy_keep": 0.0, "suppression_matrix_2d": 0.0}
 
     # ---- 2. suppression kernel vs plain ------------------------------------
     s_by_mix = {}
@@ -339,6 +425,7 @@ def main() -> int:
         if diff:
             raise SystemExit(f"suppression kernel disagrees with its plain version on {mix}")
         s_by_mix[mix] = (s_kernel, classes >= 0)
+    quarter_mix = (corners, classes)  # the 25%-valid mix, for K2 in phase 10
 
     # ---- 3. greedy kernel vs plain walk ------------------------------------
     chain = torch.from_numpy(np.triu(rng.uniform(size=(n, n)) < 0.002, 1).astype(np.int8))
@@ -540,7 +627,8 @@ def main() -> int:
     t0 = time.perf_counter()
     last = do_train(timed, tmodel, train_records)
     torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    save_s = last["checkpoint_s"]  # do_train's final checkpoint save, timed on its own
+    train_s = time.perf_counter() - t0 - save_s
     train_launches = A.assign_argmin_cuda.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train] launches in the training-path run: {{'assign_argmin': {train_launches}}} "
@@ -552,7 +640,9 @@ def main() -> int:
         raise SystemExit(f"non-finite training loss: {last}")
     log(f"[train] DOTA-1.0 1024 recipe, R-50 full width, bf16 compute / f32 params, batch {b}, "
         f"{CANVAS}x{CANVAS}, M={M_GT}: {TRAIN_STEPS} steps through do_train in "
-        f"{train_s * 1e3:.1f} ms wall (host clock, synchronised; loader start included): "
+        f"{train_s * 1e3:.1f} ms wall (host clock, synchronised; loader start included; the "
+        f"final checkpoint save of model, optimizer and scheduler, {save_s * 1e3:.1f} ms, "
+        f"excluded): "
         f"step_ms={train_s * 1e3 / TRAIN_STEPS:.2f} img/s={TRAIN_STEPS * b / train_s:.2f}; "
         f"at step {TRAIN_STEPS}: " + json.dumps({k: last[k] for k in loss_keys + ["num_pos", "lr"]})
         + f"; peak memory {peak_gib:.2f} GiB (max_memory_allocated) [{card}]")
@@ -650,21 +740,223 @@ def main() -> int:
     if same_labels < 0.999 or max(rel.values()) > 1e-4 or p_err > 1e-5:
         raise SystemExit("the card's train step disagrees with the CPU reference")
 
+    del cpu_model, results
+    torch.cuda.empty_cache()
+
+    # ---- 10. 2-D tiled suppression kernel (K2) vs plain ---------------------
+    score_order = class_major_mix(rng, b, n, n, class_major=False)
+    for mix, (corners, classes), major in (("dense-15cls-score-order", score_order, False),
+                                           ("25pct-valid-class-major", quarter_mix, True)):
+        check_k2(corners, classes, mix, card, class_major=major)
+    del score_order, quarter_mix
+
+    # ---- 11. the eval path at full width -----------------------------------
+    eval_dir = os.path.join(ROOT, "output", "chip_smoke_eval")
+    shutil.rmtree(eval_dir, ignore_errors=True)
+    eval_set = "synthetic_gen1024_val"
+    eval_args = DOTA_1024 + [
+        "INPUT.MIN_SIZE_TEST", str(CANVAS), "DATASETS.TEST", f"('{eval_set}',)",
+        "DEBUG.OVERFIT_NUM_IMAGES", str(N_EVAL_SCENES), "TPU.EVAL_BATCH", str(b),
+        "TPU.NMS_GROUP_CANDIDATES", str(GROUP_K), "OUTPUT_DIR", eval_dir,
+    ]
+    ecfg = get_cfg()
+    ecfg.merge_from_list(eval_args)
+    emodel = build_model(ecfg, device="cuda", generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        emodel.head.cls_logits.bias.fill_(-2.0)
+    Checkpointer(eval_dir).save(0, emodel)
+    register_all_datasets(ecfg)
+    t0 = time.perf_counter()
+    records = get_dataset(eval_set, ecfg)
+    log(f"[eval] {len(records)} of the {eval_set} scenes ({CANVAS}x{CANVAS}, up to 96 objects) "
+        f"made in {time.perf_counter() - t0:.1f} s (host set-up)")
+    n_batches = -(-len(records) // b)
+    K.reset_launch_counts()
+    eval_stats = {}
+    t0 = time.perf_counter()
+    results = cli_main(["--eval-only"] + eval_args, stats=eval_stats)
+    cli_s = time.perf_counter() - t0
+    eval_launches = {"suppression_matrix": K.suppression_matrix_cuda.launches,
+                     "greedy_keep": K.greedy_keep_cuda.launches}
+    log(f"[eval] launches in the eval-path run ({n_batches} batches): {eval_launches}")
+    if set(eval_launches.values()) != {n_batches}:
+        raise SystemExit(f"grouped decode did not launch K1 and greedy once per batch: {eval_launches}")
+    inference = os.path.join(eval_dir, "inference", eval_set)
+    written = [os.path.join(inference, "results.txt"), os.path.join(eval_dir, "test_results.csv")]
+    written += [os.path.join(inference, "task1", f"Task1_{c}.txt") for c in GEN_CLASSES]
+    missing = [f for f in written if not os.path.exists(f)]
+    st = eval_stats[eval_set]
+    if missing or len(st["preds"]) != len(records) or st["images"] != len(records):
+        raise SystemExit(f"the eval CLI did not write {missing} or missed images")
+    n_img, loop_s, evaluate_s = st["images"], st["loop_s"], st["evaluate_s"]
+    log(f"[eval] CLI --eval-only on {n_img} scenes in {cli_s:.2f} s wall (model build, checkpoint "
+        f"restore, data, eval, files): do_test loop (map, model, decode, fetch) {loop_s:.3f} s = "
+        f"{n_img / loop_s:.2f} img/s; evaluate() {evaluate_s:.3f} s = {n_img / evaluate_s:.2f} "
+        f"img/s (host clock); mAP {results[eval_set]['mAP']:.4f} (random weights: no meaning "
+        f"beyond the files being right); {len(written)} files written [{card}]")
+
+    # one batch's decode through both NMS paths, and every batch's NMS input
+    gspec = DecodeSpec.from_config(ecfg)
+    cspec = dataclasses.replace(gspec, nms_group_candidates=0)
+    min_total = max(gspec.nms_max_candidates, gspec.post_nms_topk)
+    thr = gspec.nms_threshold
+    cands = []
+    with torch.inference_mode():
+        for batch in DataLoader(ecfg, records, b, pad_hw=(CANVAS, CANVAS), pin_memory=True,
+                                train=False):
+            head = emodel(batch["image"].to("cuda", non_blocking=True))
+            cands.append({k: v for k, v in nms_candidates(head, gspec).items()
+                          if k in ("corners", "scores", "classes", "valid")})
+            if len(cands) == 1:
+                head0 = head
+        c0 = cands[0]
+        gpc, gpk, gpv = single_group_inputs(*grouped_nms_inputs(
+            c0["corners"], c0["scores"], c0["classes"], c0["valid"], gspec.class_merge,
+            gspec.num_classes, gspec.nms_group_candidates, min_total)[1:])
+        cc = nms_candidates(head0, cspec)
+        _, cpc, cpk, cpv = sorted_nms_inputs(cc["corners"], cc["scores"], cc["classes"],
+                                             cc["valid"], cspec.class_merge, scores01=True)
+        split = {}
+        for path, spec_, (pc, pk, pv) in (("grouped", gspec, (gpc, gpk, gpv)),
+                                          ("global-cap", cspec, (cpc, cpk, cpv))):
+            s_ = K.suppression_matrix_cuda(pc, pk, thr)
+            split[path] = {
+                "decode_ms": cuda_ms(lambda: decode_detections(head0, spec_), reps=10, warmup=2),
+                "K1_ms": cuda_ms(lambda: K.suppression_matrix_cuda(pc, pk, thr)),
+                "greedy_ms": cuda_ms(lambda: K.greedy_keep_cuda(s_, pv)),
+                "nms_rows": list(pk.shape),
+                "kept_per_img": float(decode_detections(head0, spec_)["valid"].sum(1).float().mean()),
+            }
+        pre = sum(decode_single_level(head0["logits"][i], head0["corners"][i], head0["ctrness"][i],
+                                      gspec.strides[i], gspec)["valid"].sum(1)
+                  for i in range(len(head0["logits"]))).float()
+    k_slots = gpv.shape[0] * GROUP_K
+    occupancy = gpv.sum(1).float() / GROUP_K
+    eval_mix = {"per_level_survivors_per_img": float(pre.mean()),
+                "group_occupancy_mean": float(occupancy.mean()),
+                "groups_full": int((occupancy == 1.0).sum()), "groups": gpv.shape[0],
+                "valid_slots": int(gpv.sum()), "slots": k_slots}
+    log(f"[eval] one batch of {b}, CUDA events (decode median of 10, kernels of 20): "
+        f"{json.dumps(split)}; candidate mix {json.dumps(eval_mix)} [{card}]")
+    if eval_mix["group_occupancy_mean"] <= 0.5:
+        raise SystemExit(f"grouped NMS input occupancy {eval_mix['group_occupancy_mean']}: too idle")
+
+    # the greedy kernel against the plain walk at the eval path's own shape,
+    # [B * G, K], on every batch's S
+    with torch.inference_mode():
+        g_differ = g_kept = 0
+        for c in cands:
+            pc, pk, pv = single_group_inputs(*grouped_nms_inputs(
+                c["corners"], c["scores"], c["classes"], c["valid"], gspec.class_merge,
+                gspec.num_classes, GROUP_K, min_total)[1:])
+            s_ = K.suppression_matrix_cuda(pc, pk, thr)
+            k_kernel, k_plain = K.greedy_keep_cuda(s_, pv), K.greedy_keep_plain(s_, pv)
+            g_differ += int((k_kernel != k_plain).sum())
+            g_kept += int(k_kernel.sum())
+        max_err["greedy_keep"] = max(max_err["greedy_keep"], float(g_differ > 0))
+        if g_differ:
+            raise SystemExit(f"greedy kernel disagrees with the plain walk on the grouped eval "
+                             f"inputs: {g_differ} keep entries")
+        # times and bound on the last batch's S
+        gg_ms = cuda_ms(lambda: K.greedy_keep_cuda(s_, pv))
+        gg_plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s_, pv), reps=3, warmup=1)
+        gg_bound, gg_by = greedy_bound(k_kernel, pv.shape[1])
+    log(f"[greedy grouped eval] {len(cands)} batches of [B*G, K]={list(pv.shape)}: kept {g_kept}, "
+        f"differing=0; last batch kernel_ms={gg_ms:.4f} plain_ms={gg_plain_ms:.2f} "
+        f"bound_ms={gg_bound:.5f} ({gg_by}) [{card}]")
+
+    # K2 on the eval path: a replay of every batch's grouped NMS with
+    # impl="pallas-2d".  No config key reaches `impl` (none does in the JAX
+    # package either), so the CLI's run never launches K2; its launches in
+    # the kernels line are this replay's.
+    K.reset_launch_counts()
+    keeps_2d = [rotated_nms_grouped_batched(c["corners"], c["scores"], c["classes"], c["valid"],
+                                            thr, gspec.class_merge, gspec.num_classes, GROUP_K,
+                                            min_total, impl="pallas-2d") for c in cands]
+    torch.cuda.synchronize()
+    k2_launches = K.suppression_matrix_2d_cuda.launches
+    keeps = [rotated_nms_grouped_batched(c["corners"], c["scores"], c["classes"], c["valid"],
+                                         thr, gspec.class_merge, gspec.num_classes, GROUP_K,
+                                         min_total, impl="pallas") for c in cands]
+    differ = sum(int((k2 != k1).sum()) for k2, k1 in zip(keeps_2d, keeps))
+    log(f"[eval] replay of the grouped NMS of {len(cands)} batches with impl=pallas-2d: K2 launches "
+        f"{k2_launches}; keep-sets differing from impl=pallas: {differ} of "
+        f"{sum(int(k.sum()) for k in keeps)} kept")
+    if differ or k2_launches != len(cands):
+        raise SystemExit("K2's grouped keep-sets disagree with K1's, or K2 did not launch")
+    k2_ms, k2_plain_ms, k2_bound, k2_by = check_k2(gpc, gpk, "grouped eval batch [B*G, K]", card,
+                                                   class_major=True)
+    del emodel, head0, cands, keeps_2d, keeps
+    torch.cuda.empty_cache()
+
+    # ---- 12. narrow float32 do_test: card (kernels) vs CPU (plain) -----------
+    rcfg = get_cfg()
+    rcfg.merge_from_list(NARROW + [
+        "DATASETS.TEST", "('synthetic_gen_val',)", "DEBUG.OVERFIT_NUM_IMAGES", "8",
+        "INPUT.MIN_SIZE_TEST", "256", "INPUT.MAX_SIZE_TEST", "256", "TPU.EVAL_BATCH", str(b),
+        "TPU.NMS_GROUP_CANDIDATES", "64", "TPU.NMS_MAX_CANDIDATES", "1024",
+        "MODEL.DAFNE.POST_NMS_TOPK_TEST", "300", "TEST.NUM_PRED_VIS", "0",
+    ])
+    register_all_datasets(rcfg)
+    ref = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        ref.head.cls_logits.bias.fill_(-2.0)
+    preds, maps = {}, {}
+    for dev, mdl in (("cpu", ref), ("cuda", copy.deepcopy(ref).to("cuda"))):
+        st = {}
+        maps[dev] = train_loop.do_test(rcfg, mdl, stats=st)["synthetic_gen_val"]["mAP"]
+        preds[dev] = st["synthetic_gen_val"]["preds"]
+    matched, total = match_rate(preds["cuda"], preds["cpu"])
+    # the evaluator on the ground truth as detections (score 1), and on
+    # jittered ground truth (a fifth of it far off) plus false positives,
+    # with mixed scores: the first must score 100, the second in between
+    gt_records = get_dataset("synthetic_gen_val", rcfg)
+    gt_eval = build_evaluator(rcfg, "synthetic_gen_val", gt_records)
+    mixed_eval = build_evaluator(rcfg, "synthetic_gen_val", gt_records)
+    erng = np.random.RandomState(7)
+    for r in gt_records:
+        gts = np.asarray([a["corners"] for a in r["annotations"]], np.float64)
+        cls = np.asarray([a["category_id"] for a in r["annotations"]])
+        k = len(cls)
+        gt_eval.process_image(r["image_id"], gts, np.ones(k), cls, np.ones(k, bool))
+        far = np.where(erng.rand(k, 1) < 0.2, 40.0, 1.0)
+        corners = np.concatenate([gts + erng.uniform(-1, 1, gts.shape) * far,
+                                  random_quads(erng, 1, 4, extent=256.0)[0]])
+        classes = np.concatenate([cls, erng.randint(0, len(GEN_CLASSES), 4)])
+        mixed_eval.process_image(r["image_id"], corners, erng.rand(k + 4), classes,
+                                 np.ones(k + 4, bool))
+    gt_map, mixed_map = gt_eval.evaluate()["mAP"], mixed_eval.evaluate()["mAP"]
+    log(f"[eval reference] narrow R-50 f32, 8 scenes 256x256, grouped NMS: {matched}/{total} CPU "
+        f"detections matched on the card; mAP card {maps['cuda']:.4f} CPU {maps['cpu']:.4f} "
+        f"(random weights); ground truth as detections mAP {gt_map:.4f}; jittered ground truth "
+        f"and false positives mAP {mixed_map:.4f}")
+    if total < 100 or matched < 0.99 * total or abs(maps["cuda"] - maps["cpu"]) > 0.1:
+        raise SystemExit("the card's eval path disagrees with the CPU reference")
+    if abs(gt_map - 100.0) > 1e-9:  # eleven 1/11 steps of VOC-07 sum to 1 + 2e-16
+        raise SystemExit(f"the evaluator scores the ground truth at mAP {gt_map}, not 100")
+    if not 0.0 < mixed_map < 100.0:
+        raise SystemExit(f"the evaluator scores jittered ground truth and false positives at "
+                         f"mAP {mixed_map}, not strictly between 0 and 100")
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
-         "launches": launches["suppression_matrix"],
+         "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"],
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
-         "launches": launches["greedy_keep"],
+         "launches": launches["greedy_keep"] + eval_launches["greedy_keep"],
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35", "launches": train_launches,
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+        {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
+         "replaces": "dafne_tpu/ops/pallas/quad_nms.py:128", "launches": k2_launches,
+         "max_abs_err": max_err["suppression_matrix_2d"], "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

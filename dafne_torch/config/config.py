@@ -9,6 +9,7 @@ it.
 from __future__ import annotations
 
 import ast
+import json
 import os
 from typing import Any, Dict, List
 
@@ -47,6 +48,15 @@ class CfgNode(dict):
         """Merge a YAML file, honoring ``_BASE_`` inheritance chains; string
         leaves that parse as Python literals are decoded (YACS behavior)."""
         self.merge_from_other(_decode_tree(_load_yaml_with_base(filename)))
+
+    def dump(self) -> str:
+        """The tree as JSON, which YAML readers and ``merge_from_file`` accept
+        (the machines that run the port need no PyYAML to write it)."""
+        return json.dumps(self, indent=1, sort_keys=True)
+
+    def dump_to_file(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.dump())
 
     def merge_from_list(self, opts: List[Any]) -> None:
         """Merge dotted KEY VALUE pairs."""

@@ -1,8 +1,9 @@
 """Default keys the port reads, with the JAX package's names and values.
 
-The keys of the inference slice (model, head, test-time input, decode
-budgets) and of the training slice (solver, assignment and losses,
-train-time input and sampler); counterpart of
+The keys of inference (model, head, test-time input, decode budgets), of
+training (solver, assignment and losses, train-time input and sampler) and
+of evaluation (datasets, checkpoint weights, test settings, eval batch);
+counterpart of
 ``dafne_tpu/config/defaults.py``.  ``tests/test_torch_config.py`` holds
 every value equal to the JAX package's default of the same name.
 """
@@ -18,10 +19,12 @@ def build_defaults() -> CfgNode:
     _C.SEED = -1
 
     _C.DEBUG = CfgNode()
+    _C.DEBUG.OVERFIT_NUM_IMAGES = -1  # truncate datasets to N images (<0: off)
     _C.DEBUG.NAN_CHECK = True  # raise when a written loss is not finite
 
     _C.MODEL = CfgNode()
     _C.MODEL.META_ARCHITECTURE = "OneStageDetector"
+    _C.MODEL.WEIGHTS = ""  # a port .pth loaded when no checkpoint is resumed
     _C.MODEL.PIXEL_MEAN = [123.675, 116.28, 103.53]
     _C.MODEL.PIXEL_STD = [1.0, 1.0, 1.0]
 
@@ -55,9 +58,12 @@ def build_defaults() -> CfgNode:
     d.IN_FEATURES = ["p3", "p4", "p5", "p6", "p7"]
     d.FPN_STRIDES = [8, 16, 32, 64, 128]
     d.PRIOR_PROB = 0.01
+    d.INFERENCE_TH_TRAIN = 0.05
     d.INFERENCE_TH_TEST = 0.05
     d.NMS_TH = 0.1
+    d.PRE_NMS_TOPK_TRAIN = 2000
     d.PRE_NMS_TOPK_TEST = 2000
+    d.POST_NMS_TOPK_TRAIN = 1000
     d.POST_NMS_TOPK_TEST = 1000
     d.TOP_LEVELS = 2
     d.NORM = "GN"
@@ -104,6 +110,7 @@ def build_defaults() -> CfgNode:
     _C.INPUT.MIN_SIZE_TRAIN = (800,)
     _C.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
     _C.INPUT.MAX_SIZE_TRAIN = 1333
+    _C.INPUT.MIN_SIZE_TEST = 800
     _C.INPUT.MAX_SIZE_TEST = 1333
     _C.INPUT.HFLIP_TRAIN = True
     _C.INPUT.ROTATION_AUG_ANGLES = [0.0, 90.0, 180.0, 270.0]
@@ -114,6 +121,10 @@ def build_defaults() -> CfgNode:
     _C.INPUT.RESIZE_HEIGHT_TEST = 0
     _C.INPUT.RESIZE_WIDTH_TEST = 0
     _C.INPUT.USE_COLOR_AUGMENTATIONS = False
+
+    _C.DATASETS = CfgNode()
+    _C.DATASETS.TRAIN = ["dota_1_train_1024"]
+    _C.DATASETS.TEST = ["dota_1_val_1024"]
 
     _C.DATALOADER = CfgNode()
     _C.DATALOADER.NUM_WORKERS = 4
@@ -147,12 +158,20 @@ def build_defaults() -> CfgNode:
     _C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
     _C.SOLVER.CLIP_GRADIENTS.NORM_TYPE = 2.0
 
+    _C.TEST = CfgNode()
+    _C.TEST.EVAL_PERIOD = 0  # do_test every N train iterations (0: off)
+    _C.TEST.IOU_TH = 0.5  # VOC-07 AP overlap threshold
+    _C.TEST.NUM_PRED_VIS = 20  # sample renderings (not ported: needs cv2)
+    _C.TEST.AUG = CfgNode()
+    _C.TEST.AUG.ENABLED = False  # TTA; True is not ported and raises
+
     # key names kept from the JAX package's TPU namespace so recipes merge
     t = _C.TPU = CfgNode()
     t.COMPUTE_DTYPE = "bfloat16"  # model compute dtype; params stay float32
     t.MAX_INSTANCES = 256  # static per-image gt padding
-    t.NMS_GROUP_CANDIDATES = 0  # >0 (per-class-group NMS) is not ported yet
+    t.NMS_GROUP_CANDIDATES = 0  # >0: per-class-group NMS budget; 0: global cap
     t.NMS_MAX_CANDIDATES = 4096  # static NMS input size (global score cap)
+    t.EVAL_BATCH = 16  # eval images per step
     t.ASSIGN_IMPL = "auto"  # "pallas" (the CUDA kernel) | "xla" (plain) | "auto"
     t.IMAGE_SIZE_DIVISIBILITY = 128
     t.PREFETCH_DEPTH = 2  # batches the train loader keeps ready

@@ -1,12 +1,14 @@
-"""Train samplers and the prefetching batch loader.
+"""Train samplers and the batch loader.
 
 Counterpart of ``dafne_tpu/data/loader.py``: ``training_sampler``,
 ``repeat_factors``, ``repeat_factor_sampler`` and ``build_sampler``
-(:28-74) give the same index streams for the same seed; ``DataLoader`` is
-the training half of the JAX loader (the same per-example seeds), yielding
-torch tensors: the uint8 canvases and the ``gt_*`` arrays stacked into one
-batch, in pinned memory when asked, ready for a non-blocking copy to the
-card.
+(:28-74) give the same index streams for the same seed.  ``DataLoader``
+yields torch tensors: the uint8 canvases and the mapper's arrays stacked
+into one batch, in pinned memory when asked, ready for a non-blocking copy
+to the card.  Training batches are infinite, drawn with the JAX loader's
+per-example seeds and prefetched by a producer thread; eval batches (:232)
+walk the records in order, the last batch padded with repeats of its last
+record, with each slot's ``image_id`` and ``batch_valid``.
 """
 
 from __future__ import annotations
@@ -72,22 +74,25 @@ def build_sampler(cfg, records: List[dict], seed: int = 0) -> Iterator[int]:
 
 
 class DataLoader:
-    """Infinite train batches of `batch_size` over `records`, mapped by
-    DATALOADER.NUM_WORKERS threads and kept TPU.PREFETCH_DEPTH batches
-    ahead by a producer thread."""
+    """Batches of `batch_size` over `records`, mapped by
+    DATALOADER.NUM_WORKERS threads.  `train`: infinite, kept
+    TPU.PREFETCH_DEPTH batches ahead by a producer thread; else one pass in
+    record order (``len`` batches)."""
 
     def __init__(self, cfg, records: List[dict], batch_size: int, seed: int = 0,
-                 pad_hw: Optional[Tuple[int, int]] = None, pin_memory: bool = False):
-        if cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
+                 pad_hw: Optional[Tuple[int, int]] = None, pin_memory: bool = False,
+                 train: bool = True):
+        if train and cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
             records = [r for r in records if r.get("annotations")] or records
         self.records = records
         self.batch_size = batch_size
-        self.mapper = DatasetMapper(cfg, pad_hw or pad_target_hw(cfg, train=True))
+        self.train = train
+        self.mapper = DatasetMapper(cfg, pad_hw or pad_target_hw(cfg, train=train), train=train)
         self.num_workers = cfg.DATALOADER.NUM_WORKERS
         self.prefetch = max(1, cfg.TPU.PREFETCH_DEPTH)
         self.seed = seed
         self.pin_memory = pin_memory
-        self.sampler = build_sampler(cfg, self.records, seed)
+        self.sampler = build_sampler(cfg, self.records, seed) if train else None
 
     def make_batch(self, indices: List[int], seeds: List[int],
                    pool: Optional[ThreadPoolExecutor] = None) -> Dict:
@@ -103,13 +108,35 @@ class DataLoader:
 
         work = list(zip(range(len(indices)), indices, seeds))
         examples = list(pool.map(one, work)) if pool is not None else [one(a) for a in work]
-        batch = {"image": images}
-        for k in GT_KEYS:
-            t = torch.from_numpy(np.stack([e[k] for e in examples]))
-            batch[k] = t.pin_memory() if self.pin_memory else t
+        batch = {"image": images, "image_id": [e["image_id"] for e in examples]}
+        for k in examples[0]:
+            if k not in batch:
+                t = torch.from_numpy(np.stack([e[k] for e in examples]))
+                batch[k] = t.pin_memory() if self.pin_memory else t
         return batch
 
+    def __len__(self):
+        if self.train:
+            raise TypeError("the train loader is infinite")
+        return -(-len(self.records) // self.batch_size)
+
     def __iter__(self):
+        return self._train_iter() if self.train else self._eval_iter()
+
+    def _eval_iter(self):
+        n = len(self.records)
+        with ThreadPoolExecutor(max(self.num_workers, 1)) as pool:
+            for start in range(0, n, self.batch_size):
+                idx = list(range(start, min(start + self.batch_size, n)))
+                real = len(idx)
+                idx += [idx[-1]] * (self.batch_size - real)  # pad the last batch
+                batch = self.make_batch(idx, [0] * len(idx),
+                                        pool if self.num_workers > 0 else None)
+                batch["image_id"] = [self.records[i].get("image_id", str(i)) for i in idx]
+                batch["batch_valid"] = np.arange(self.batch_size) < real
+                yield batch
+
+    def _train_iter(self):
         seed_counter = itertools.count(self.seed * 1_000_003 + 1)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

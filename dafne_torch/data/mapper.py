@@ -1,13 +1,15 @@
-"""Dataset mapper for training: record dict -> static-shape example.
+"""Dataset mapper: record dict -> static-shape example, train or eval.
 
-Counterpart of the training path of ``dafne_tpu/data/mapper.py``
-(``DatasetMapper.__call__``, ``_sort_quad_np`` :26, ``_shoelace`` :68, the
-packing to ``TPU.MAX_INSTANCES`` :152-188):
+Counterpart of ``dafne_tpu/data/mapper.py`` (``DatasetMapper.__call__``
+:113-262, ``_sort_quad_np`` :26, ``_shoelace`` :68, ``eval_pad_hw``
+:335-362):
 
-  augmentation (``data/transforms.py``) -> corners transformed exactly
-  -> degenerate instances dropped -> canonical corner sort
-  (SORT_CORNERS_DATALOADER) -> shoelace area -> gts padded to
-  MAX_INSTANCES, the image placed top-left on a zero (pad_h, pad_w) canvas.
+  augmentation (``data/transforms.py``: the random train map, or the
+  test-time resize) -> corners transformed exactly -> degenerate instances
+  dropped -> canonical corner sort (SORT_CORNERS_DATALOADER) -> shoelace
+  area -> gts padded to MAX_INSTANCES, the image placed top-left on a zero
+  (pad_h, pad_w) canvas, with the record's image_id, its original and
+  resized sizes and the resized-to-original scale.
 
 Records carry their image as a uint8 array (``record["image"]``): decoding
 files is not ported.  The device-side augmentation path
@@ -69,25 +71,32 @@ def _shoelace(corners: np.ndarray) -> np.ndarray:
 
 
 class DatasetMapper:
-    """Callable record -> train example (numpy arrays)."""
+    """Callable record -> train or eval example (numpy arrays)."""
 
-    def __init__(self, cfg, pad_hw: Tuple[int, int]):
-        if cfg.TPU.TRAIN_DEVICE_AUG is True:
+    def __init__(self, cfg, pad_hw: Tuple[int, int], train: bool = True):
+        if train and cfg.TPU.TRAIN_DEVICE_AUG is True:
             raise NotImplementedError("TPU.TRAIN_DEVICE_AUG=True is not ported")
         self.cfg = cfg
+        self.train = train
         self.pad_h, self.pad_w = pad_hw
         self.max_inst = cfg.TPU.MAX_INSTANCES
         self.sort_corners = cfg.MODEL.DAFNE.SORT_CORNERS_DATALOADER
-        self.color_aug = cfg.INPUT.USE_COLOR_AUGMENTATIONS
+        self.color_aug = cfg.INPUT.USE_COLOR_AUGMENTATIONS and train
 
-    def __call__(self, record: Dict, rng: np.random.RandomState,
+    def __call__(self, record: Dict, rng: Optional[np.random.RandomState] = None,
                  image_out: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
-        """`image_out`: an optional zeroed [pad_h, pad_w, 3] uint8 buffer (a
-        slice of the batch) to render into; the example's "image" is it."""
+        """`rng` draws the train augmentation (unused at eval).  `image_out`:
+        an optional zeroed [pad_h, pad_w, 3] uint8 buffer (a slice of the
+        batch) to render into; the example's "image" is it."""
         if "image" not in record:
             raise NotImplementedError("records must carry their image: decoding is not ported")
+        rng = rng or np.random.RandomState()
         img = record["image"]
-        aug = T.build_train_augmentations(self.cfg, img.shape[1], img.shape[0], rng)
+        h, w = img.shape[:2]
+        if self.train:
+            aug = T.build_train_augmentations(self.cfg, w, h, rng)
+        else:
+            aug = T.build_test_augmentation(self.cfg, w, h)
         img = aug.apply_image(img)
         if self.color_aug:
             img = T.apply_color_augmentations(img, rng)
@@ -138,6 +147,11 @@ class DatasetMapper:
             "gt_area": gt_area,
             "gt_valid": gt_valid,
             "gt_difficult": gt_difficult,
+            "image_id": record.get("image_id", ""),
+            "orig_hw": np.asarray([h, w], np.int32),
+            "resized_hw": np.asarray([rh, rw], np.int32),
+            # resized -> original scale, to rescale predictions at eval
+            "scale_xy": np.asarray([w / rw, h / rh], np.float32),
         }
 
 
@@ -151,3 +165,25 @@ def pad_target_hw(cfg, train: bool) -> Tuple[int, int]:
     else:
         h = w = cfg.INPUT.MAX_SIZE_TRAIN if train else cfg.INPUT.MAX_SIZE_TEST
     return int(-(-h // div) * div), int(-(-w // div) * div)
+
+
+def eval_pad_hw(cfg, records) -> Tuple[int, int]:
+    """The tight static eval canvas: the largest resized extent over the
+    records (from their width and height), rounded up to
+    TPU.IMAGE_SIZE_DIVISIBILITY and capped at ``pad_target_hw``; that
+    worst case when a record carries neither its size nor its image."""
+    worst = pad_target_hw(cfg, train=False)
+    div = cfg.TPU.IMAGE_SIZE_DIVISIBILITY
+    mh = mw = 0
+    for r in records:
+        w, h = r.get("width"), r.get("height")
+        if not w or not h:
+            if "image" not in r:
+                return worst
+            h, w = r["image"].shape[:2]
+        aug = T.build_test_augmentation(cfg, int(w), int(h))
+        mh = max(mh, aug.out_h)
+        mw = max(mw, aug.out_w)
+    if mh == 0:
+        return worst
+    return min(-(-mh // div) * div, worst[0]), min(-(-mw // div) * div, worst[1])

@@ -4,7 +4,9 @@ A copy of ``dafne_tpu/data/datasets/synthetic.py::_make_gen_record`` for
 traffic on machines without OpenCV: the same random draws (so the same
 annotations for a seed), with shapes filled by point-in-polygon and
 point-in-ellipse tests on pixel centers instead of cv2.  Pixels need not
-match cv2's rasterizer.
+match cv2's rasterizer.  Registered as ``synthetic_gen_{train,val,test}``
+(256^2) and ``synthetic_gen1024_{train,val,test}`` (1024^2, up to 96
+objects), with the JAX package's sizes and metadata.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+
+from dafne_torch.data.registry import DatasetCatalog, MetadataCatalog
 
 GEN_CLASSES = ["stripe", "square", "ellipse", "ring", "smallrect", "wedge"]
 
@@ -128,3 +132,43 @@ def load_synthetic_gen(split: str, n: int, hw: int = 256, max_boxes: int = 10) -
     """n scenes of a split; train/val/test seed spaces are disjoint."""
     base = {"train": 0, "val": 500_000, "test": 600_000}[split]
     return [_make_gen_record(base + i, hw=hw, max_boxes=max_boxes) for i in range(n)]
+
+
+def register_synthetic_gen(cfg) -> None:
+    """synthetic_gen_{train,val,test}: 2048, 64 and 64 scenes at 256^2;
+    DEBUG.OVERFIT_NUM_IMAGES truncates them downstream like any dataset."""
+    for split, n in [("train", 2048), ("val", 64), ("test", 64)]:
+        name = f"synthetic_gen_{split}"
+        DatasetCatalog.register(name, lambda s=split, k=n: load_synthetic_gen(s, k))
+        MetadataCatalog[name] = {
+            "evaluator_type": "synthetic",
+            "thing_classes": GEN_CLASSES,
+            "split": split,
+            "is_test": False,
+        }
+    register_synthetic_gen1024(cfg)
+
+
+#: memo of the 1024^2 scenes: the pipeline treats records as read-only
+_GEN1024_CACHE: dict = {}
+
+
+def _load_synthetic_gen1024(split: str, n: int) -> List[dict]:
+    key = (split, n)
+    if key not in _GEN1024_CACHE:
+        _GEN1024_CACHE[key] = load_synthetic_gen(split, n, hw=1024, max_boxes=96)
+    return _GEN1024_CACHE[key]
+
+
+def register_synthetic_gen1024(cfg) -> None:
+    """synthetic_gen1024_{train,val,test}: 512, 64 and 64 scenes at 1024^2
+    with up to 96 objects, the deployment-scale canvas."""
+    for split, n in [("train", 512), ("val", 64), ("test", 64)]:
+        name = f"synthetic_gen1024_{split}"
+        DatasetCatalog.register(name, lambda s=split, k=n: _load_synthetic_gen1024(s, k))
+        MetadataCatalog[name] = {
+            "evaluator_type": "synthetic",
+            "thing_classes": GEN_CLASSES,
+            "split": split,
+            "is_test": False,
+        }

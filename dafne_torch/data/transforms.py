@@ -3,13 +3,15 @@
 Counterpart of ``dafne_tpu/data/transforms.py``: ``AffineAug``,
 ``identity``, ``hflip``, ``vflip``, ``rotation``, ``resize``,
 ``shortest_edge_resize``, ``build_train_augmentations`` (:187, the same rng
-draws in the same order) and ``apply_color_augmentations`` (:284).  Every
+draws in the same order), ``build_test_augmentation`` (:264) and
+``apply_color_augmentations`` (:284).  Every
 geometric augmentation is an affine map; the pipeline composes into one
 matrix, corners transform exactly, and the image is transformed once.
 
 Images: only signed-permutation matrices at unit scale are rendered
 (flips, transposes and 90-degree rotations of a square image, which is
-what the square DOTA 1024 recipe draws), as the numpy copy the JAX
+what the square DOTA 1024 recipe draws, and the identity of its 1024^2
+test tiles at unit scale), as the numpy copy the JAX
 package's fast path (:62-110) makes with cv2.  Any other matrix, a general
 angle or a resize, needs a warp and raises ``NotImplementedError``.
 """
@@ -161,6 +163,14 @@ def build_train_augmentations(cfg, w: int, h: int, rng: np.random.RandomState,
         aug = aug.compose(resize(aug.out_w, aug.out_h, cfg.INPUT.RESIZE_WIDTH_TRAIN,
                                  cfg.INPUT.RESIZE_HEIGHT_TRAIN))
     return aug
+
+
+def build_test_augmentation(cfg, w: int, h: int) -> AffineAug:
+    """The test-time resize: shortest edge to INPUT.MIN_SIZE_TEST capped at
+    MAX_SIZE_TEST, or INPUT.RESIZE_{WIDTH,HEIGHT}_TEST for "both"."""
+    if cfg.INPUT.RESIZE_TYPE == "shortest-edge":
+        return shortest_edge_resize(w, h, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    return resize(w, h, cfg.INPUT.RESIZE_WIDTH_TEST, cfg.INPUT.RESIZE_HEIGHT_TEST)
 
 
 # detectron2 RandomLighting PCA basis (AlexNet-style ImageNet eigen

@@ -1,25 +1,45 @@
-"""The training loop: records -> loader -> train steps -> metric writers.
+"""The training and evaluation loops.
 
-Counterpart of ``dafne_tpu/engine/train_loop.py::do_train`` (:288) for one
-GPU: ``auto_scale_config`` to a world size of 1, the train records through
-the port's loader onto the static train canvas, SOLVER.MAX_ITER steps, the
-metric writers every 20 iterations (and at the first), and the
-``DEBUG.NAN_CHECK`` raise.  Checkpoints, periodic evaluation, several
-processes and the profiler window are not ported.
+Counterpart of ``dafne_tpu/engine/train_loop.py`` for one process on one
+device:
+
+- ``do_train`` (:288): ``auto_scale_config`` to a world size of 1, resume or
+  bootstrap through ``engine/checkpoint.py``, the train records through
+  the port's loader onto the static train canvas, SOLVER.MAX_ITER steps,
+  the metric writers every 20 iterations (and at the first), the
+  ``DEBUG.NAN_CHECK`` raise, a checkpoint every SOLVER.CHECKPOINT_PERIOD
+  iterations and at the end, and ``do_test`` every TEST.EVAL_PERIOD.
+- ``do_test`` (:108): every DATASETS.TEST dataset through the eval loader
+  and ``make_eval_step`` on the tight eval canvas, one batch in flight
+  while the host fetches the previous one, into the VOC-07 evaluator;
+  ``results.txt``, the Task1 files and ``test_results.csv``.
+- ``save_test_results``, ``setup_logging`` and ``default_setup``.
+
+Several processes, the profiler window, the unlabeled test split
+(``result_merge`` and the submission zip) and sample renderings are not
+ported.
 """
 
 from __future__ import annotations
 
+import csv
 import logging
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import torch
+
+from dafne_torch.data import get_dataset, register_all_datasets
 from dafne_torch.data.loader import GT_KEYS, DataLoader
-from dafne_torch.data.mapper import pad_target_hw
+from dafne_torch.data.mapper import eval_pad_hw, pad_target_hw
+from dafne_torch.data.registry import MetadataCatalog
+from dafne_torch.engine.checkpoint import Checkpointer
 from dafne_torch.engine.events import build_writers
+from dafne_torch.engine.inference import make_eval_step
 from dafne_torch.engine.optimizer import auto_scale_config, build_optimizer
 from dafne_torch.engine.trainer import make_train_step
+from dafne_torch.evaluation import build_evaluator
 
 logger = logging.getLogger("dafne_torch")
 
@@ -31,10 +51,122 @@ def to_device(batch, device) -> Dict:
     return {k: batch[k].to(device, non_blocking=True) for k in ("image",) + GT_KEYS}
 
 
-def do_train(cfg, model, records: List[dict]) -> Dict[str, float]:
+def setup_logging(output_dir=None):
+    handlers = [logging.StreamHandler()]
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(output_dir, "log.txt")))
+    logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s",
+                        handlers=handlers, force=True)
+
+
+def default_setup(cfg):
+    """Logging to OUTPUT_DIR/log.txt, the datasets registered, and the
+    config written to OUTPUT_DIR/config.yaml."""
+    setup_logging(cfg.OUTPUT_DIR)
+    register_all_datasets(cfg)
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    cfg.dump_to_file(os.path.join(cfg.OUTPUT_DIR, "config.yaml"))
+
+
+def _fetch_async(det: Dict[str, torch.Tensor]):
+    """Start copying a step's detections to the host: (tensors, event), the
+    tensors readable once the event (None off the card) has completed."""
+    host = {k: v.to("cpu", non_blocking=True) for k, v in det.items()}
+    event = None
+    if any(v.is_cuda for v in det.values()):
+        event = torch.cuda.Event()
+        event.record()
+    return host, event
+
+
+def _consume(evaluator, batch, fetched) -> int:
+    host, event = fetched
+    if event is not None:
+        event.synchronize()
+    evaluator.process_batch(batch, {k: v.numpy() for k, v in host.items()})
+    return int(batch["batch_valid"].sum())
+
+
+def do_test(cfg, model, output_dir=None, step: int = 0,
+            stats: Optional[dict] = None) -> Dict[str, Dict[str, float]]:
+    """Evaluate `model` (on its device) on every cfg.DATASETS.TEST dataset.
+
+    Returns {dataset: {"AP50/<class>": ..., "mAP": ...}}.  With
+    `output_dir`, each dataset's artifacts go to
+    output_dir/inference/<dataset> and a row per metric is appended to
+    output_dir/test_results.csv.  A `stats` dict receives, per dataset, the
+    images evaluated, the host seconds of the loop (model, decode, fetch)
+    and of ``evaluate()``, and the per-image detections ("preds": image id
+    to corners, scores, classes).  The model is left in the mode it came in."""
+    device = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    results = {}
+    for dataset_name in cfg.DATASETS.TEST:
+        records = get_dataset(dataset_name, cfg)
+        meta = MetadataCatalog.get(dataset_name, {})
+        if meta.get("is_test") and not any(r.get("annotations") for r in records):
+            raise NotImplementedError(
+                f"{dataset_name}: unlabeled test splits (result_merge, submission zip) are not ported")
+        # the tight per-dataset canvas (record dims) instead of MAX_SIZE_TEST^2
+        pad_hw = eval_pad_hw(cfg, records)
+        eval_step = make_eval_step(model, cfg, pad_hw)
+        loader = DataLoader(cfg, records, max(1, int(cfg.TPU.EVAL_BATCH)), pad_hw=pad_hw,
+                            pin_memory=device.type == "cuda", train=False)
+        out_dir = os.path.join(output_dir, "inference", dataset_name) if output_dir else None
+        evaluator = build_evaluator(cfg, dataset_name, records, out_dir)
+        t0 = time.perf_counter()
+        n_images = 0
+        # one batch in flight: batch i+1 is dispatched (its host mapping
+        # overlapping batch i on the device) before batch i is fetched
+        pending = None
+        for batch in loader:
+            det = eval_step(batch["image"].to(device, non_blocking=True),
+                            batch["scale_xy"].to(device, non_blocking=True))
+            fetched = _fetch_async(det)
+            if pending is not None:
+                n_images += _consume(evaluator, *pending)
+            pending = (batch, fetched)
+        if pending is not None:
+            n_images += _consume(evaluator, *pending)
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = evaluator.evaluate()
+        evaluate_s = time.perf_counter() - t0
+        if out_dir and cfg.TEST.NUM_PRED_VIS > 0:
+            logger.info(f"TEST.NUM_PRED_VIS={cfg.TEST.NUM_PRED_VIS}: sample renderings are not "
+                        "ported (they need cv2); none written")
+        logger.info(f"eval {dataset_name}: {n_images} images in {loop_s:.3f} s "
+                    f"({n_images / max(loop_s, 1e-9):.2f} img/s: model, decode, fetch); "
+                    f"evaluate {evaluate_s:.3f} s; mAP={res.get('mAP', 0):.2f}")
+        results[dataset_name] = res
+        if stats is not None:
+            stats[dataset_name] = {"images": n_images, "loop_s": loop_s,
+                                   "evaluate_s": evaluate_s, "preds": evaluator._preds}
+        if output_dir and res:
+            save_test_results(output_dir, dataset_name, step, res)
+    model.train(was_training)
+    return results
+
+
+def save_test_results(output_dir, dataset_name, step, res):
+    """Append one row per metric to output_dir/test_results.csv."""
+    path = os.path.join(output_dir, "test_results.csv")
+    exists = os.path.exists(path)
+    with open(path, "a") as f:
+        w = csv.writer(f)
+        if not exists:
+            w.writerow(["iteration", "dataset", "metric", "value"])
+        for k, v in sorted(res.items()):
+            w.writerow([step, dataset_name, k, f"{v:.4f}"])
+
+
+def do_train(cfg, model, records: List[dict], resume: bool = False) -> Dict[str, float]:
     """Train `model` (on its device) over `records` (dicts with "image" and
-    "annotations") for SOLVER.MAX_ITER steps.  Returns the metrics of the
-    last write, as floats."""
+    "annotations") up to SOLVER.MAX_ITER steps, from the newest checkpoint
+    of OUTPUT_DIR when `resume`.  Returns the metrics of the last write, as
+    floats, and "checkpoint_s": the host seconds spent saving checkpoints."""
     cfg = auto_scale_config(cfg, 1)
     device = next(model.parameters()).device
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
@@ -44,6 +176,8 @@ def do_train(cfg, model, records: List[dict]) -> Dict[str, float]:
     logger.info(f"device={device} batch={batch_size} pad_hw={pad_hw} records={len(records)}")
 
     optimizer, scheduler = build_optimizer(cfg, model)
+    checkpointer = Checkpointer(cfg.OUTPUT_DIR)
+    start_iter = checkpointer.resume_or_load(model, cfg, resume, optimizer, scheduler)
     step = make_train_step(model, cfg, pad_hw, optimizer, scheduler)
     loader = DataLoader(cfg, records, batch_size, seed=max(cfg.SEED, 0), pad_hw=pad_hw,
                         pin_memory=device.type == "cuda")
@@ -52,14 +186,25 @@ def do_train(cfg, model, records: List[dict]) -> Dict[str, float]:
     batches = iter(loader)
     host: Dict[str, float] = {}
     t_data = 0.0
-    last_write = -1
+    last_write = start_iter - 1
+    ckpt_period, eval_period = cfg.SOLVER.CHECKPOINT_PERIOD, cfg.TEST.EVAL_PERIOD
+    save_s = 0.0
+
+    def save(at):
+        nonlocal save_s
+        t0 = time.perf_counter()
+        checkpointer.save(at, model, optimizer, scheduler)
+        dt = time.perf_counter() - t0
+        save_s += dt
+        logger.info(f"checkpoint {at} saved in {dt:.3f} s")
+
     try:
-        for it in range(max_iter):
+        for it in range(start_iter, max_iter):
             t0 = time.perf_counter()
             batch = to_device(next(batches), device)
             t_data += time.perf_counter() - t0
             metrics = step(batch)
-            if (it + 1) % WRITE_PERIOD == 0 or it == 0:
+            if (it + 1) % WRITE_PERIOD == 0 or it == start_iter:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["data_time"] = t_data / (it - last_write)
                 last_write = it
@@ -68,8 +213,13 @@ def do_train(cfg, model, records: List[dict]) -> Dict[str, float]:
                     raise FloatingPointError(f"Loss became non-finite at iteration {it}: {host}")
                 for w in writers:
                     w.write(it + 1, host)
+            if ckpt_period and (it + 1) % ckpt_period == 0:
+                save(it + 1)
+            if eval_period and (it + 1) % eval_period == 0 and (it + 1) != max_iter:
+                do_test(cfg, model, cfg.OUTPUT_DIR, step=it + 1)
+        save(max_iter)
     finally:
         batches.close()
         for w in writers:
             w.close()
-    return host
+    return {**host, "checkpoint_s": save_s}

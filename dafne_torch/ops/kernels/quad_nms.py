@@ -1,6 +1,9 @@
 """Rotated-quad NMS kernels: the suppression matrix and the greedy keep-set.
 
-Counterpart of ``dafne_tpu/ops/pallas/quad_nms.py``.  Each function has
+Counterpart of ``dafne_tpu/ops/pallas/quad_nms.py``.  The suppression matrix
+has two kernels, as there: the strip kernel for class-major candidates (K1,
+``class_major=True``) and the 2-D tiled kernel for any score order (K2).
+Each function has
   - a CUDA kernel (``dafne_torch/csrc/quad_nms.cu``) behind a wrapper that
     checks its inputs, launches on the current stream, raises on a launch
     error and counts its launches (``<wrapper>.launches``);
@@ -92,7 +95,10 @@ def suppression_matrix_plain(corners, classes, iou_threshold: float, eps: float 
 
     S[b, i, j] = 1 iff j > i, classes[b, i] == classes[b, j] >= 0 and the
     exact IoU of quads i and j (CCW corners) exceeds `iou_threshold`.  Every
-    pair is evaluated; the kernel skips pairs that cannot be nonzero."""
+    pair is evaluated, in whatever order the candidates come, so this is the
+    plain version of both kernels: the strip kernel (class-major input) and
+    the 2-D tiled kernel (any order).  The kernels skip pairs that cannot be
+    nonzero."""
     b, n, _ = corners.shape
     qx = [corners[:, None, :, 2 * k] for k in range(4)]  # [B, 1, N]
     qy = [corners[:, None, :, 2 * k + 1] for k in range(4)]
@@ -142,12 +148,31 @@ def strip_spans(classes: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo // TILE, (hi + TILE - 1) // TILE], -1).to(torch.int32).contiguous()
 
 
+def tile_interactions(classes: torch.Tensor) -> torch.Tensor:
+    """[B, N / TILE, N / TILE] bool: the TILE x TILE tiles of S that the 2-D
+    kernel computes, those on or above the diagonal whose row and column
+    tiles share a valid class (>= 0); every other tile of S is zero.  The
+    Pallas 2-D kernel's interaction test, `(j >= i) & any(rcls == ccls)`."""
+    b, n = classes.shape
+    t = n // TILE
+    c = classes.reshape(b, t, TILE).long()
+    n_cls = int(c.max()) + 1 if bool((c >= 0).any()) else 1
+    present = torch.zeros((b, t, n_cls + 1), dtype=torch.float32, device=classes.device)
+    present.scatter_(2, torch.where(c >= 0, c, n_cls), 1.0)
+    present = present[..., :n_cls]
+    shared = torch.bmm(present, present.transpose(1, 2)) > 0
+    tiles = torch.arange(t, device=classes.device)
+    return shared & (tiles[None, None, :] >= tiles[None, :, None])
+
+
 def _lib():
     lib = load("quad_nms")
     if not getattr(lib, "_dafne_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dafne_suppression_matrix.argtypes = [p, p, p, p, i, i, f, f, p]
         lib.dafne_suppression_matrix.restype = i
+        lib.dafne_suppression_matrix_2d.argtypes = [p, p, p, i, i, f, f, p]
+        lib.dafne_suppression_matrix_2d.restype = i
         lib.dafne_greedy_keep.argtypes = [p, p, p, i, i, p]
         lib.dafne_greedy_keep.restype = i
         lib._dafne_typed = True
@@ -159,17 +184,22 @@ def _raise_on(code: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
 
 
+def _check_suppression_inputs(what, corners, classes):
+    b, n = classes.shape
+    if n % TILE or b < 1:
+        raise ValueError(f"{what}: need B >= 1 and N % {TILE} == 0, got {b}x{n}")
+    check_cuda("corners", corners, torch.float32, (b, n, 8))
+    check_cuda("classes", classes, torch.int32, (b, n))
+    if corners.device != classes.device:
+        raise ValueError(f"{what}: corners and classes on different devices")
+    return b, n
+
+
 def suppression_matrix_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
     """Launch the suppression kernel: corners [B, N, 8] f32 (CCW, class-major,
     score-descending within a class), classes [B, N] i32 (< 0 for invalid
     and padded slots), N % TILE == 0.  Returns S [B, N, N] int8."""
-    b, n = classes.shape
-    if n % TILE or b < 1:
-        raise ValueError(f"suppression_matrix_cuda: need B >= 1 and N % {TILE} == 0, got {b}x{n}")
-    check_cuda("corners", corners, torch.float32, (b, n, 8))
-    check_cuda("classes", classes, torch.int32, (b, n))
-    if corners.device != classes.device:
-        raise ValueError("suppression_matrix_cuda: corners and classes on different devices")
+    b, n = _check_suppression_inputs("suppression_matrix_cuda", corners, classes)
     lib = _lib()
     with torch.cuda.device(corners.device):
         spans = strip_spans(classes)
@@ -187,11 +217,36 @@ def suppression_matrix_cuda(corners, classes, iou_threshold: float, eps: float =
 suppression_matrix_cuda.launches = 0
 
 
-def suppression_matrix(corners, classes, iou_threshold: float, eps: float = 1e-6):
-    """S [B, N, N] int8 (see suppression_matrix_plain): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+def suppression_matrix_2d_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
+    """Launch the 2-D tiled suppression kernel: corners [B, N, 8] f32 (CCW,
+    any order that is score-descending within a class), classes [B, N] i32
+    (< 0 for invalid and padded slots), N % TILE == 0.  Returns S [B, N, N]
+    int8."""
+    b, n = _check_suppression_inputs("suppression_matrix_2d_cuda", corners, classes)
+    lib = _lib()
+    with torch.cuda.device(corners.device):
+        out = torch.zeros((b, n, n), dtype=torch.int8, device=corners.device)
+        code = lib.dafne_suppression_matrix_2d(
+            corners.data_ptr(), classes.data_ptr(), out.data_ptr(), b, n,
+            float(iou_threshold), float(eps), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(code, "suppression_matrix_2d_cuda")
+    suppression_matrix_2d_cuda.launches += 1
+    return out
+
+
+suppression_matrix_2d_cuda.launches = 0
+
+
+def suppression_matrix(corners, classes, iou_threshold: float, eps: float = 1e-6,
+                       class_major: bool = False):
+    """S [B, N, N] int8 (see suppression_matrix_plain).  For CUDA tensors a
+    kernel: the strip kernel when `class_major` (valid only for class-major
+    candidates, invalid last), else the 2-D tiled kernel, which takes any
+    score-descending order; for CPU tensors the plain version."""
     if corners.is_cuda:
-        return suppression_matrix_cuda(corners, classes, iou_threshold, eps)
+        kernel = suppression_matrix_cuda if class_major else suppression_matrix_2d_cuda
+        return kernel(corners, classes, iou_threshold, eps)
     if corners.device.type == "cpu":
         return suppression_matrix_plain(corners, classes, iou_threshold, eps)
     raise ValueError(f"suppression_matrix: unsupported device {corners.device}")
@@ -254,4 +309,5 @@ def greedy_keep(s: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
 
 def reset_launch_counts() -> None:
     suppression_matrix_cuda.launches = 0
+    suppression_matrix_2d_cuda.launches = 0
     greedy_keep_cuda.launches = 0

@@ -1,16 +1,19 @@
 """Fixed-size decoding of dense head outputs into detections.
 
-Counterpart of ``dafne_tpu/ops/postprocess.py`` on its global-cap path:
+Counterpart of ``dafne_tpu/ops/postprocess.py``:
 
   per level:   sigmoid(cls) [, sqrt(cls*ctr)] -> threshold mask
                -> top-k over the flattened (location x class) axis
                -> corners = location + stride * offsets
-  all levels:  concat -> global score cap to NMS_MAX_CANDIDATES
-               -> canonical corner sort -> rotated NMS -> post-NMS top-k
+  all levels:  concat -> global score cap to NMS_MAX_CANDIDATES (none on
+               the grouped path) -> canonical corner sort -> rotated NMS
+               (global, or per class group when NMS_GROUP_CANDIDATES > 0)
+               -> post-NMS top-k
 
 Every output has a fixed size and a validity mask.  Each top-k takes the
 same set and the same order as the JAX function (``ops/topk.py``), so the
 NMS sees its candidates in the same order and ties resolve alike.
+``DECODE_APPROX_TOPK`` is not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from dafne_torch.geometry.quads import enclosing_hbox, sort_quadrilateral
-from dafne_torch.ops.nms import rotated_nms
+from dafne_torch.ops.nms import rotated_nms, rotated_nms_grouped_batched
 from dafne_torch.ops.topk import exact_topk_set, top_k
 
 
@@ -39,20 +42,20 @@ class DecodeSpec:
     sort_corners: bool = True
     stride_norm: bool = True
     nms_max_candidates: int = 4096
+    nms_group_candidates: int = 0  # > 0: per-class-group NMS with this budget
+    # (ops/nms.py::rotated_nms_grouped_batched); 0: the global-cap path
     class_merge: Tuple[Tuple[int, int], ...] = ((5, 4),)
 
     @classmethod
-    def from_config(cls, cfg) -> "DecodeSpec":
-        """Test-time decode settings of a config."""
-        if cfg.TPU.NMS_GROUP_CANDIDATES > 0:
-            raise NotImplementedError("per-class-group NMS (TPU.NMS_GROUP_CANDIDATES > 0)")
+    def from_config(cls, cfg, train: bool = False) -> "DecodeSpec":
+        """Decode settings of a config, at test time unless `train`."""
         d = cfg.MODEL.DAFNE
         return cls(
             strides=tuple(d.FPN_STRIDES),
             num_classes=d.NUM_CLASSES,
-            pre_nms_thresh=d.INFERENCE_TH_TEST,
-            pre_nms_topk=d.PRE_NMS_TOPK_TEST,
-            post_nms_topk=d.POST_NMS_TOPK_TEST,
+            pre_nms_thresh=d.INFERENCE_TH_TRAIN if train else d.INFERENCE_TH_TEST,
+            pre_nms_topk=d.PRE_NMS_TOPK_TRAIN if train else d.PRE_NMS_TOPK_TEST,
+            post_nms_topk=d.POST_NMS_TOPK_TRAIN if train else d.POST_NMS_TOPK_TEST,
             nms_threshold=d.NMS_TH,
             thresh_with_ctr=d.THRESH_WITH_CTR,
             has_centerness=d.CENTERNESS != "none",
@@ -60,6 +63,7 @@ class DecodeSpec:
             sort_corners=d.SORT_CORNERS,
             stride_norm=d.ENABLE_FPN_STRIDE_NORM,
             nms_max_candidates=cfg.TPU.NMS_MAX_CANDIDATES,
+            nms_group_candidates=cfg.TPU.get("NMS_GROUP_CANDIDATES", 0),
         )
 
 
@@ -114,8 +118,9 @@ def decode_single_level(logits, corners, ctrness, stride: int, spec: DecodeSpec)
 
 
 def nms_candidates(head_out: Dict[str, List[torch.Tensor]], spec: DecodeSpec):
-    """Per-level top-k, concat, global score cap and corner sort: the NMS
-    input.  Returns a dict of [N, m] arrays (corners [N, m, 8] sorted)."""
+    """Per-level top-k, concat, global score cap (none on the grouped path:
+    every per-level survivor enters NMS) and corner sort: the NMS input.
+    Returns a dict of [N, m] arrays (corners [N, m, 8] sorted)."""
     per_level = [
         decode_single_level(
             head_out["logits"][i], head_out["corners"][i], head_out["ctrness"][i],
@@ -127,12 +132,19 @@ def nms_candidates(head_out: Dict[str, List[torch.Tensor]], spec: DecodeSpec):
 
     total = cand["scores"].shape[1]
     masked = torch.where(cand["valid"], cand["scores"], 0.0)
-    m = min(spec.nms_max_candidates, total) if spec.nms_max_candidates > 0 else total
-    if m < total and total > 2048:
-        scores, idx = exact_topk_set(masked, m)
+    keys = ("corners", "classes", "centerness", "locations")
+    if spec.nms_group_candidates > 0:
+        # the grouped NMS takes its own per-group top-k and the post-NMS
+        # top-k orders the output, so no global cap and no global top-k
+        out = {key: cand[key] for key in keys}
+        scores = masked
     else:
-        scores, idx = top_k(masked, m)
-    out = {key: _take(cand[key], idx) for key in ("corners", "classes", "centerness", "locations")}
+        m = min(spec.nms_max_candidates, total) if spec.nms_max_candidates > 0 else total
+        if m < total and total > 2048:
+            scores, idx = exact_topk_set(masked, m)
+        else:
+            scores, idx = top_k(masked, m)
+        out = {key: _take(cand[key], idx) for key in keys}
     out["scores"] = scores
     out["valid"] = scores > 0.0
     if spec.sort_corners:
@@ -142,16 +154,24 @@ def nms_candidates(head_out: Dict[str, List[torch.Tensor]], spec: DecodeSpec):
 
 def decode_detections(head_out: Dict[str, List[torch.Tensor]], spec: DecodeSpec,
                       scale_xy: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Full decode: per-level top-k -> concat -> NMS -> post-NMS top-k.
+    """Full decode: per-level top-k -> concat -> [cap ->] NMS -> post-NMS top-k.
 
     Returns [N, post_nms_topk] arrays: corners [.., 8] (in original image
     coordinates if scale_xy [N, 2] is given), hboxes [.., 4], scores,
     classes, centerness, locations, valid."""
     cand = nms_candidates(head_out, spec)
-    keep = rotated_nms(
-        cand["corners"], cand["scores"], cand["classes"], cand["valid"],
-        spec.nms_threshold, spec.class_merge, scores01=True,  # sqrt(cls*ctr)
-    )
+    if spec.nms_group_candidates > 0:
+        keep = rotated_nms_grouped_batched(
+            cand["corners"], cand["scores"], cand["classes"], cand["valid"],
+            spec.nms_threshold, spec.class_merge, spec.num_classes,
+            group_k=spec.nms_group_candidates,
+            min_total=max(spec.nms_max_candidates, spec.post_nms_topk),
+        )
+    else:
+        keep = rotated_nms(
+            cand["corners"], cand["scores"], cand["classes"], cand["valid"],
+            spec.nms_threshold, spec.class_merge, scores01=True,  # sqrt(cls*ctr)
+        )
 
     m = cand["scores"].shape[1]
     out_scores, out_idx = top_k(torch.where(keep, cand["scores"], 0.0), min(spec.post_nms_topk, m))

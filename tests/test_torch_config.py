@@ -69,5 +69,7 @@ def test_port_imports_nothing_of_jax():
     assert res.returncode == 0, res.stderr
     assert len(modules) >= 30
     for m in ("dafne_torch.ops.kernels.assign", "dafne_torch.engine.train_loop",
-              "dafne_torch.data.loader"):
+              "dafne_torch.data.loader", "dafne_torch.tools.train", "dafne_torch.engine.checkpoint",
+              "dafne_torch.evaluation.evaluator", "dafne_torch.evaluation.voc_eval",
+              "dafne_torch.data.registry", "dafne_torch.utils.polyiou"):
         assert m in modules

@@ -5,11 +5,13 @@
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. the card, and an nvcc build of dafne_torch/csrc/*.cu for sm_90a;
-  2. the suppression-matrix kernel against its plain PyTorch version at
-     N = 4096, batch 8, on a dense all-valid 15-class mix and a 25%-valid
-     class-major mix: S must be equal entry for entry;
-  3. the greedy keep kernel against the plain sequential walk on those S
-     and on one with a 300-box suppression chain: equal keep-sets;
+  2. the suppression-matrix kernel (K1, S as bit rows) against its plain
+     PyTorch version, packed, at N = 4096, batch 8, on a dense all-valid
+     15-class mix and a 25%-valid class-major mix: bit rows equal word for
+     word, with the live blocks it computes;
+  3. the greedy keep kernel (over bit rows) against the plain sequential
+     walk on those S and on one with a 300-box suppression chain (built
+     int8, then packed): equal keep-sets;
   4. the main path: R-50 + FPN P3-P7 + DAFNe head at full width, 15 classes,
      a 1024x1024 canvas, bf16, batch 8, seeded random weights (cls bias -2 so
      that the 4096-slot NMS input is filled), after one warm-up batch
@@ -17,8 +19,12 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      through engine/predictor.py; both kernels must have launched in them;
      then one batch's wall time split on the host clock (canvas, copy to
      the card, eval step, the rest) and the device phases on CUDA events;
+     and that batch's decode with no candidate cap (TPU.NMS_MAX_CANDIDATES
+     0: every per-level survivor, ~9 000 per image, into NMS), with K1's
+     bits and greedy's keep-set checked there too;
   5. the kernels against their plain versions on the main path's own NMS
-     inputs, with times and bounds; and a small float32 reference check:
+     inputs (K1's bits word for word, greedy's keep-set against the plain
+     walk), with times and bounds; and a small float32 reference check:
      the same narrow model on the card and on the CPU (plain versions) must
      give the same detections;
   6. the assignment kernel (K3) against its plain version at B = 8,
@@ -46,8 +52,9 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      test_results.csv written, K1 and greedy launched once per batch; eval
      img/s and the evaluator's time; one batch's decode through the grouped
      and the global-cap path with K1 and greedy inside each; the candidate
-     mix; the greedy kernel equal to the plain walk on every batch's
-     [B * G, K] S; then a replay of every batch's grouped NMS with
+     mix; K1's bits equal to the packed plain S and the greedy kernel equal
+     to the plain walk on every batch's [B * G, K] S; then a replay of
+     every batch's grouped NMS with
      impl="pallas-2d" (K2) equal to impl="pallas", and K2 against its plain
      version and K1 on the grouped path's own [B * G, K] inputs.  No config
      key reaches `impl`, so the CLI never launches K2: its launches in the
@@ -62,7 +69,10 @@ Phases (any failure exits nonzero; no phase's failure is caught):
 The line before the last holds one JSON object with every kernel's numbers
 (K1's and greedy's launches from phases 4 and 11's CLI run, K3's from phase
 7, K2's from phase 11's replay); the last line is {"ok": true, "device": {...}}.  Every time printed is
-measured in this run, on the card named by the nvidia-smi line.
+measured in this run, on the card named by the nvidia-smi line: kernel_ms
+(and "ms" in the kernels line) on CUDA events around the wrapper's call,
+which hold the wrapper's host time when the card waits for the launch;
+device_ms from a torch.profiler trace, the kernel alone.
 """
 
 from __future__ import annotations
@@ -90,6 +100,12 @@ HBM_BYTES_PER_S = 3.35e12
 # built with -fmad=false, so each add, mul or compare is an instruction of
 # its own, issued at most once per FP32 lane per cycle: half that rate.
 F32_OPS_NO_FMA = F32_FLOPS / 2
+# H100 SXM boost clock (data sheet), and the latency of one dependent
+# integer ALU step: the greedy walk's serial floor
+SM_CLOCK_HZ = 1.98e9
+SERIAL_STEP_CYCLES = 4
+# kernel names as the profiler reports them
+K1_KERNEL, GREEDY_KERNEL = "suppression_bits_kernel", "greedy_keep_bits_kernel"
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8  # main-path batch, and the batch of the kernel checks
@@ -150,6 +166,33 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, reps=20, traces=3):
+    """Mean device time per call of fn() of the CUDA kernels whose name
+    holds `kernel` ("" for all of them: the device's busy time), from a
+    torch.profiler trace of `reps` calls after one warm-up call: the
+    kernels alone, without the host time that CUDA events around a call
+    (cuda_ms) also hold when the card waits for a launch.  A trace that
+    holds no such kernel (the profiler drops one now and then) is taken
+    again, up to `traces` times; then None: not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
+
+
+def fmt_ms(ms, digits=4):
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
 def host_ms(fn, reps=3):
     """Median host-clock ms of fn(), synchronised with the card on both ends."""
     times = []
@@ -199,13 +242,14 @@ def class_major_mix(rng, b, n, n_valid, n_classes=15, class_major=True):
     return corners, torch.from_numpy(classes).cuda()
 
 
-def suppression_bound(classes, n):
-    """((bound ms, bound_by), same-class pairs, ops bound ms without FMA):
-    the larger of the f32 work these inputs need (OPS_PER_PAIR for every
-    same-class pair j > i) over F32_FLOPS and the bytes (corners and
-    classes read once, S written once) over the card's memory rate.  The
-    last item is the work over F32_OPS_NO_FMA, the rate the kernel as
-    built can reach."""
+def suppression_bound(classes, n, s_bits=True):
+    """((bound ms, bound_by), same-class pairs, ops bound ms without FMA,
+    {"bits": ms, "int8": ms}): the larger of the f32 work these inputs need
+    (OPS_PER_PAIR for every same-class pair j > i) over F32_FLOPS and the
+    bytes (corners and classes read once, S written once: N^2 / 8 bytes as
+    bit rows with `s_bits` (K1), N^2 as int8 (K2)) over the card's memory
+    rate.  The third item is the work over F32_OPS_NO_FMA, the rate the
+    kernel as built can reach; the last, the bytes bound of either layout."""
     from dafne_torch.ops.kernels.quad_nms import OPS_PER_PAIR
 
     cls = classes.cpu().numpy()
@@ -215,17 +259,28 @@ def suppression_bound(classes, n):
         pairs += int((counts * (counts - 1) // 2).sum())
     b = cls.shape[0]
     t_ops = pairs * OPS_PER_PAIR / F32_FLOPS * 1e3
-    t_bytes = b * (n * 8 * 4 + n * 4 + n * n) / HBM_BYTES_PER_S * 1e3
+    by_layout = {k: b * (n * 8 * 4 + n * 4 + s) / HBM_BYTES_PER_S * 1e3
+                 for k, s in (("bits", n * n // 8), ("int8", n * n))}
+    t_bytes = by_layout["bits" if s_bits else "int8"]
     bound = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-    return bound, pairs, pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3
+    return bound, pairs, pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3, by_layout
 
 
 def greedy_bound(keep, n):
-    """Bytes the walk needs: each kept row's upper triangle of S, plus the
-    keep_init read and the keep written; no arithmetic to speak of."""
+    """((bound ms, "bytes"), int8 bytes ms, serial floor ms).  The bound is
+    the bytes the walk needs: each kept row i's upper-triangle words of the
+    bit rows (words i // 32 .. N / 32 - 1, 4 bytes each), plus the keep_init
+    read and the keep written; no arithmetic to speak of.  Beside it, the
+    same over int8 S (N - 1 - i bytes per kept row), and the serial floor
+    the chunked design implies: N / 32 chunks of 32 dependent steps, each at
+    least one ALU latency (SERIAL_STEP_CYCLES) at the boost clock."""
     idx = torch.nonzero(keep)[:, 1].cpu().numpy()
-    nbytes = int((n - 1 - idx).sum()) + 2 * keep.numel()
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    words = n // 32
+    word_bytes = int((words - idx // 32).sum()) * 4 + 2 * keep.numel()
+    int8_bytes = int((n - 1 - idx).sum()) + 2 * keep.numel()
+    floor = words * 32 * SERIAL_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+    return ((word_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+            int8_bytes / HBM_BYTES_PER_S * 1e3, floor)
 
 
 def assign_bound(k, gt_valid, m):
@@ -284,6 +339,32 @@ def check_assign(spec, tables, g, what, card):
     return ms, plain_ms, bound, by, err, (km, ka)
 
 
+def check_k1(corners, classes, thr, what):
+    """K1 against its plain version: raises unless the bit rows equal the
+    packed plain S word for word.  Returns (bits, plain int8 S)."""
+    from dafne_torch.ops.kernels import quad_nms as K
+
+    bits = K.suppression_bits_cuda(corners, classes, thr)
+    s_plain = K.suppression_matrix_plain(corners, classes, thr)
+    diff = int((bits != K.pack_suppression_bits(s_plain)).sum())
+    if diff:
+        raise SystemExit(f"K1 disagrees with its packed plain version on {what}: {diff} words")
+    return bits, s_plain
+
+
+def check_greedy(bits, s, keep_init, what):
+    """The greedy kernel over `bits` against the plain sequential walk over
+    the int8 S they pack: raises unless the keep-sets are equal.  Returns
+    the kernel's keep."""
+    from dafne_torch.ops.kernels import quad_nms as K
+
+    k_kernel = K.greedy_keep_bits_cuda(bits, keep_init)
+    diff = int((k_kernel != K.greedy_keep_plain(s, keep_init)).sum())
+    if diff:
+        raise SystemExit(f"greedy kernel disagrees with the plain walk on {what}: {diff} entries")
+    return k_kernel
+
+
 def check_k2(corners, classes, what, card, class_major):
     """K2 against its plain version and, on class-major input, against K1:
     raises unless S is equal entry for entry.  Returns (kernel ms, plain
@@ -293,7 +374,7 @@ def check_k2(corners, classes, what, card, class_major):
     b, n = classes.shape
     s2 = K.suppression_matrix_2d_cuda(corners, classes, 0.1)
     sp = K.suppression_matrix_plain(corners, classes, 0.1)
-    s1 = K.suppression_matrix_cuda(corners, classes, 0.1) if class_major else s2
+    s1 = K.suppression_matrix(corners, classes, 0.1, class_major=True) if class_major else s2
     torch.cuda.synchronize()
     diff, diff_k1 = int((s2 != sp).sum()), int((s2 != s1).sum())
     if diff or diff_k1:
@@ -301,11 +382,11 @@ def check_k2(corners, classes, what, card, class_major):
                          f"{diff_k1} with K1")
     tiles = int(K.tile_interactions(classes).sum())
     n_tiles = n // K.TILE
-    (bound, by), pairs, no_fma = suppression_bound(classes, n)
+    (bound, by), pairs, no_fma, _ = suppression_bound(classes, n, s_bits=False)
     ms = cuda_ms(lambda: K.suppression_matrix_2d_cuda(corners, classes, 0.1))
     k1 = ""
     if class_major:
-        k1 = f"K1_ms={cuda_ms(lambda: K.suppression_matrix_cuda(corners, classes, 0.1)):.4f} "
+        k1 = f"K1_ms={cuda_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1)):.4f} "
     plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(corners, classes, 0.1), reps=3, warmup=1)
     log(f"[K2 {what}] B={b} N={n} nonzeros={int(s2.sum())} differing_entries=0 (plain"
         f"{', and K1' if class_major else ''}) interacting_tiles={tiles} of "
@@ -404,49 +485,47 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     b, n = BATCH, N_NMS
+    # the checks of K1, greedy and K2 exit on any differing word or entry,
+    # so a printed kernels line carries 0 for them
     max_err = {"suppression_matrix": 0.0, "greedy_keep": 0.0, "suppression_matrix_2d": 0.0}
 
     # ---- 2. suppression kernel vs plain ------------------------------------
     s_by_mix = {}
     for mix, n_valid in (("dense-15cls", n), ("25pct-valid", n // 4)):
         corners, classes = class_major_mix(rng, b, n, n_valid)
-        s_kernel = K.suppression_matrix_cuda(corners, classes, 0.1)
-        s_plain = K.suppression_matrix_plain(corners, classes, 0.1)
-        torch.cuda.synchronize()
-        diff = int((s_kernel != s_plain).sum())
-        max_err["suppression_matrix"] = max(max_err["suppression_matrix"], float(diff > 0))
-        ms = cuda_ms(lambda: K.suppression_matrix_cuda(corners, classes, 0.1))
+        bits, s_plain = check_k1(corners, classes, 0.1, mix)
+        ms = cuda_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1))
+        dev = device_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1), K1_KERNEL)
         plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(corners, classes, 0.1), reps=3, warmup=1)
-        (bound, by), pairs, no_fma = suppression_bound(classes, n)
-        log(f"[K1 {mix}] B={b} N={n} nonzeros={int(s_kernel.sum())} differing_entries={diff} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.4f} ({by}; "
-            f"same-class pairs {pairs}, {K.OPS_PER_PAIR} f32 ops each; S bytes {b * n * n}) "
+        (bound, by), pairs, no_fma, layouts = suppression_bound(classes, n)
+        live = int(K.live_blocks(classes).sum())
+        log(f"[K1 {mix}] B={b} N={n} nonzeros={int(s_plain.sum())} differing_words=0 "
+            f"live_blocks={live} of {b * (n // K.STRIP) * (n // K.TILE)} kernel_ms={ms:.4f} "
+            f"device_ms={fmt_ms(dev)} plain_ms={plain_ms:.2f} bound_ms={bound:.4f} ({by}; same-class pairs {pairs}, "
+            f"{K.OPS_PER_PAIR} f32 ops each; S {b * n * n // 8} bytes as bit rows, bytes bound "
+            f"{layouts['bits']:.5f}, as int8 {layouts['int8']:.5f}) "
             f"ops_bound_no_fma_ms={no_fma:.4f} [{card}]")
-        if diff:
-            raise SystemExit(f"suppression kernel disagrees with its plain version on {mix}")
-        s_by_mix[mix] = (s_kernel, classes >= 0)
+        s_by_mix[mix] = (bits, s_plain, classes >= 0)
     quarter_mix = (corners, classes)  # the 25%-valid mix, for K2 in phase 10
 
     # ---- 3. greedy kernel vs plain walk ------------------------------------
     chain = torch.from_numpy(np.triu(rng.uniform(size=(n, n)) < 0.002, 1).astype(np.int8))
     links = torch.arange(min(300, n - 1))
     chain[links, links + 1] = 1
-    s_by_mix["chain-300"] = (chain[None].cuda().contiguous(),
+    chain = chain[None].cuda().contiguous()
+    s_by_mix["chain-300"] = (K.pack_suppression_bits(chain), chain,
                              torch.from_numpy(rng.uniform(size=(1, n)) > 0.05).cuda())
-    for mix, (s, keep_init) in s_by_mix.items():
-        k_kernel = K.greedy_keep_cuda(s, keep_init)
-        k_plain = K.greedy_keep_plain(s, keep_init)
-        torch.cuda.synchronize()
-        diff = int((k_kernel != k_plain).sum())
-        max_err["greedy_keep"] = max(max_err["greedy_keep"], float(diff > 0))
-        ms = cuda_ms(lambda: K.greedy_keep_cuda(s, keep_init))
+    for mix, (bits, s, keep_init) in s_by_mix.items():
+        k_kernel = check_greedy(bits, s, keep_init, mix)
+        ms = cuda_ms(lambda: K.greedy_keep_bits_cuda(bits, keep_init))
+        dev = device_ms(lambda: K.greedy_keep_bits_cuda(bits, keep_init), GREEDY_KERNEL)
         plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s, keep_init), reps=3, warmup=1)
-        bound, by = greedy_bound(k_kernel, n)
-        log(f"[greedy {mix}] B={s.shape[0]} N={n} kept={int(k_kernel.sum())} differing={diff} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} ({by}) [{card}]")
-        if diff:
-            raise SystemExit(f"greedy kernel disagrees with the plain walk on {mix}")
-    del s_by_mix, chain
+        (bound, by), int8_bound, floor = greedy_bound(k_kernel, n)
+        log(f"[greedy {mix}] B={s.shape[0]} N={n} kept={int(k_kernel.sum())} differing=0 "
+            f"kernel_ms={ms:.4f} device_ms={fmt_ms(dev)} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} "
+            f"({by}, bit-row words; over int8 S {int8_bound:.5f}) serial_floor_ms={floor:.5f} "
+            f"[{card}]")
+    del s_by_mix, chain, bits
 
     # ---- 4. main path ------------------------------------------------------
     torch.backends.cudnn.benchmark = True
@@ -472,8 +551,8 @@ def main() -> int:
         t0 = time.perf_counter()
         dets = predictor.detect(requests)
         windows_s.append(time.perf_counter() - t0)  # detect returns host lists: synchronised
-    launches = {"suppression_matrix": K.suppression_matrix_cuda.launches,
-                "greedy_keep": K.greedy_keep_cuda.launches}
+    launches = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                "greedy_keep": K.greedy_keep_bits_cuda.launches}
     log(f"[main] launches in the main-path run: {launches}")
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel of the main path never launched: {launches}")
@@ -529,33 +608,61 @@ def main() -> int:
                                           cand["valid"], spec.class_merge, scores01=True)
         model_ms = cuda_ms(lambda: model(images), reps=10, warmup=2)
         decode_ms = cuda_ms(lambda: decode_detections(head, spec), reps=10, warmup=2)
-        k1_ms = cuda_ms(lambda: K.suppression_matrix_cuda(pc, pk, spec.nms_threshold))
-        s_main = K.suppression_matrix_cuda(pc, pk, spec.nms_threshold)
-        s_plain = K.suppression_matrix_plain(pc, pk, spec.nms_threshold)
-        k1_plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(pc, pk, spec.nms_threshold),
-                              reps=3, warmup=1)
-        g_ms = cuda_ms(lambda: K.greedy_keep_cuda(s_main, pv))
-        keep_main = K.greedy_keep_cuda(s_main, pv)
-        keep_plain = K.greedy_keep_plain(s_main, pv)
-        g_plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s_main, pv), reps=3, warmup=1)
-    d1 = int((s_main != s_plain).sum())
-    d2 = int((keep_main != keep_plain).sum())
-    max_err["suppression_matrix"] = max(max_err["suppression_matrix"], float(d1 > 0))
-    max_err["greedy_keep"] = max(max_err["greedy_keep"], float(d2 > 0))
-    if d1 or d2:
-        raise SystemExit(f"kernels disagree on the main path's inputs: S {d1}, keep {d2}")
-    (k1_bound, k1_by), pairs, k1_no_fma = suppression_bound(pk, pk.shape[1])
-    g_bound, g_by = greedy_bound(keep_main, pk.shape[1])
+        decode_busy = device_ms(lambda: decode_detections(head, spec), "", reps=10)
+        thr = spec.nms_threshold
+        bits_main, s_plain = check_k1(pc, pk, thr, "the main path's inputs")
+        keep_main = check_greedy(bits_main, s_plain, pv, "the main path's inputs")
+        k1_ms = cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr))
+        k1_plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(pc, pk, thr), reps=3, warmup=1)
+        g_ms = cuda_ms(lambda: K.greedy_keep_bits_cuda(bits_main, pv))
+        k1_dev = device_ms(lambda: K.suppression_bits_cuda(pc, pk, thr), K1_KERNEL)
+        g_dev = device_ms(lambda: K.greedy_keep_bits_cuda(bits_main, pv), GREEDY_KERNEL)
+        g_plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s_plain, pv), reps=3, warmup=1)
+    (k1_bound, k1_by), pairs, k1_no_fma, k1_layouts = suppression_bound(pk, pk.shape[1])
+    (g_bound, g_by), g_int8_bound, g_floor = greedy_bound(keep_main, pk.shape[1])
+    k1_live = int(K.live_blocks(pk).sum())
     n_img = WINDOWS * len(requests)
     log(f"[main] R-50 DOTA {CANVAS}x{CANVAS} bf16 batch {b}: {n_img / sum(windows_s):.2f} img/s "
         f"({n_img} requests in {WINDOWS} windows of {WINDOW_BATCHES} batches, "
         f"{sum(windows_s) * 1e3:.1f} ms wall, host included; window seconds "
         f"{windows_s}) [{card}]")
     log(f"[main] per batch of {b}: model_ms={model_ms:.3f} decode_ms={decode_ms:.3f} "
-        f"(of which K1_ms={k1_ms:.4f} greedy_ms={g_ms:.4f}); NMS N={pk.shape[1]}, "
-        f"same-class pairs {pairs}, kept {int(keep_main.sum())}; K1 bound_ms={k1_bound:.4f} "
-        f"({k1_by}, {K.OPS_PER_PAIR} ops per pair at {F32_FLOPS / 1e12:.0f} TFLOP/s), "
-        f"ops_bound_no_fma_ms={k1_no_fma:.4f} (at {F32_OPS_NO_FMA / 1e12:.1f} T ops/s) [{card}]")
+        f"(device busy {fmt_ms(decode_busy, 3)}: the sum of its kernels' device time) "
+        f"(of which K1_ms={k1_ms:.4f} greedy_ms={g_ms:.4f}; device alone K1 {fmt_ms(k1_dev)}, "
+        f"greedy {fmt_ms(g_dev)}); NMS N={pk.shape[1]}, "
+        f"same-class pairs {pairs}, K1 live blocks {k1_live}, kept {int(keep_main.sum())}; "
+        f"K1 bound_ms={k1_bound:.4f} ({k1_by}, {K.OPS_PER_PAIR} ops per pair at "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s; bytes bound {k1_layouts['bits']:.5f} as bit rows, "
+        f"{k1_layouts['int8']:.5f} as int8), ops_bound_no_fma_ms={k1_no_fma:.4f} (at "
+        f"{F32_OPS_NO_FMA / 1e12:.1f} T ops/s); K1 plain_ms={k1_plain_ms:.2f}; greedy "
+        f"bound_ms={g_bound:.5f} ({g_by}, bit-row words; over int8 S {g_int8_bound:.5f}) "
+        f"serial_floor_ms={g_floor:.5f} plain_ms={g_plain_ms:.2f} [{card}]")
+
+    # the same batch with no candidate cap (TPU.NMS_MAX_CANDIDATES <= 0, the
+    # reference's own setting): greedy's shared ring holds 4096 columns of a
+    # row, so at this N it also ORs words from global memory
+    nspec = dataclasses.replace(spec, nms_max_candidates=0)
+    with torch.inference_mode():
+        ncand = nms_candidates(head, nspec)
+        _, npc, npk, npv = sorted_nms_inputs(ncand["corners"], ncand["scores"], ncand["classes"],
+                                             ncand["valid"], nspec.class_merge, scores01=True)
+        nbits, ns_plain = check_k1(npc, npk, thr, "the no-cap NMS inputs")
+        nkeep = check_greedy(nbits, ns_plain, npv, "the no-cap NMS inputs")
+        nout = decode_detections(head, nspec)
+        if not all(torch.isfinite(v).all() for v in nout.values() if v.is_floating_point()):
+            raise SystemExit("non-finite detections with no candidate cap")
+        ng_ms = cuda_ms(lambda: K.greedy_keep_bits_cuda(nbits, npv))
+        ng_dev = device_ms(lambda: K.greedy_keep_bits_cuda(nbits, npv), GREEDY_KERNEL)
+        nk1_dev = device_ms(lambda: K.suppression_bits_cuda(npc, npk, thr), K1_KERNEL)
+        ndecode_ms = cuda_ms(lambda: decode_detections(head, nspec), reps=10, warmup=2)
+    (ng_bound, _), ng_int8_bound, ng_floor = greedy_bound(nkeep, npk.shape[1])
+    log(f"[main no-cap] the same batch with TPU.NMS_MAX_CANDIDATES 0: NMS N={npk.shape[1]} "
+        f"(valid {int(npv.sum())}), K1 bits equal to the packed plain S, greedy equal to the "
+        f"plain walk (kept {int(nkeep.sum())}); decode_ms={ndecode_ms:.3f} greedy_ms={ng_ms:.4f} "
+        f"device alone greedy {fmt_ms(ng_dev)} K1 {fmt_ms(nk1_dev)}; greedy bound_ms="
+        f"{ng_bound:.5f} (bit-row words; over int8 S {ng_int8_bound:.5f}) "
+        f"serial_floor_ms={ng_floor:.5f} [{card}]")
+    del ncand, nbits, ns_plain, nout
 
     # ---- 5. small float32 reference: card (kernels) vs CPU (plain) ---------
     small = get_cfg()
@@ -586,7 +693,7 @@ def main() -> int:
     log(f"[reference] narrow R-50 256x256 f32: {matched}/{total} CPU detections matched on the card")
     if total < 100 or matched < 0.99 * total:
         raise SystemExit("the card's detections disagree with the CPU reference")
-    del model, predictor, gpu_model, ref_model, head, out, cand, s_main, s_plain
+    del model, predictor, gpu_model, ref_model, head, out, cand, bits_main, s_plain
     torch.cuda.empty_cache()
 
     # ---- 6. assignment kernel (K3) vs plain -------------------------------
@@ -776,8 +883,8 @@ def main() -> int:
     t0 = time.perf_counter()
     results = cli_main(["--eval-only"] + eval_args, stats=eval_stats)
     cli_s = time.perf_counter() - t0
-    eval_launches = {"suppression_matrix": K.suppression_matrix_cuda.launches,
-                     "greedy_keep": K.greedy_keep_cuda.launches}
+    eval_launches = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                     "greedy_keep": K.greedy_keep_bits_cuda.launches}
     log(f"[eval] launches in the eval-path run ({n_batches} batches): {eval_launches}")
     if set(eval_launches.values()) != {n_batches}:
         raise SystemExit(f"grouped decode did not launch K1 and greedy once per batch: {eval_launches}")
@@ -819,11 +926,13 @@ def main() -> int:
         split = {}
         for path, spec_, (pc, pk, pv) in (("grouped", gspec, (gpc, gpk, gpv)),
                                           ("global-cap", cspec, (cpc, cpk, cpv))):
-            s_ = K.suppression_matrix_cuda(pc, pk, thr)
+            bits_ = K.suppression_bits_cuda(pc, pk, thr)
             split[path] = {
                 "decode_ms": cuda_ms(lambda: decode_detections(head0, spec_), reps=10, warmup=2),
-                "K1_ms": cuda_ms(lambda: K.suppression_matrix_cuda(pc, pk, thr)),
-                "greedy_ms": cuda_ms(lambda: K.greedy_keep_cuda(s_, pv)),
+                "decode_device_busy_ms": device_ms(lambda: decode_detections(head0, spec_), "",
+                                                   reps=10),
+                "K1_ms": cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr)),
+                "greedy_ms": cuda_ms(lambda: K.greedy_keep_bits_cuda(bits_, pv)),
                 "nms_rows": list(pk.shape),
                 "kept_per_img": float(decode_detections(head0, spec_)["valid"].sum(1).float().mean()),
             }
@@ -841,29 +950,37 @@ def main() -> int:
     if eval_mix["group_occupancy_mean"] <= 0.5:
         raise SystemExit(f"grouped NMS input occupancy {eval_mix['group_occupancy_mean']}: too idle")
 
-    # the greedy kernel against the plain walk at the eval path's own shape,
-    # [B * G, K], on every batch's S
+    # K1 against its packed plain version and the greedy kernel against the
+    # plain walk at the eval path's own shape, [B * G, K], on every batch
     with torch.inference_mode():
-        g_differ = g_kept = 0
-        for c in cands:
+        g_kept = 0
+        for i, c in enumerate(cands):
             pc, pk, pv = single_group_inputs(*grouped_nms_inputs(
                 c["corners"], c["scores"], c["classes"], c["valid"], gspec.class_merge,
                 gspec.num_classes, GROUP_K, min_total)[1:])
-            s_ = K.suppression_matrix_cuda(pc, pk, thr)
-            k_kernel, k_plain = K.greedy_keep_cuda(s_, pv), K.greedy_keep_plain(s_, pv)
-            g_differ += int((k_kernel != k_plain).sum())
+            bits_, s_ = check_k1(pc, pk, thr, f"grouped eval batch {i}")
+            k_kernel = check_greedy(bits_, s_, pv, f"grouped eval batch {i}")
             g_kept += int(k_kernel.sum())
-        max_err["greedy_keep"] = max(max_err["greedy_keep"], float(g_differ > 0))
-        if g_differ:
-            raise SystemExit(f"greedy kernel disagrees with the plain walk on the grouped eval "
-                             f"inputs: {g_differ} keep entries")
-        # times and bound on the last batch's S
-        gg_ms = cuda_ms(lambda: K.greedy_keep_cuda(s_, pv))
+        # times and bounds on the last batch
+        gk1_ms = cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr))
+        gk1_dev = device_ms(lambda: K.suppression_bits_cuda(pc, pk, thr), K1_KERNEL)
+        gg_dev = device_ms(lambda: K.greedy_keep_bits_cuda(bits_, pv), GREEDY_KERNEL)
+        gk1_plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(pc, pk, thr), reps=3, warmup=1)
+        (gk1_bound, gk1_by), gpairs, gk1_no_fma, _ = suppression_bound(pk, pk.shape[1])
+        gg_ms = cuda_ms(lambda: K.greedy_keep_bits_cuda(bits_, pv))
         gg_plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s_, pv), reps=3, warmup=1)
-        gg_bound, gg_by = greedy_bound(k_kernel, pv.shape[1])
+        (gg_bound, gg_by), gg_int8_bound, gg_floor = greedy_bound(k_kernel, pv.shape[1])
+        g_live = int(K.live_blocks(pk).sum())
+    log(f"[K1 grouped eval] {len(cands)} batches of [B*G, K]={list(pk.shape)}: bit rows equal to "
+        f"the packed plain S (differing_words=0); last batch kernel_ms={gk1_ms:.4f} "
+        f"device_ms={fmt_ms(gk1_dev)} "
+        f"plain_ms={gk1_plain_ms:.2f} bound_ms={gk1_bound:.5f} ({gk1_by}; same-class pairs "
+        f"{gpairs}) ops_bound_no_fma_ms={gk1_no_fma:.5f} live_blocks={g_live} [{card}]")
     log(f"[greedy grouped eval] {len(cands)} batches of [B*G, K]={list(pv.shape)}: kept {g_kept}, "
-        f"differing=0; last batch kernel_ms={gg_ms:.4f} plain_ms={gg_plain_ms:.2f} "
-        f"bound_ms={gg_bound:.5f} ({gg_by}) [{card}]")
+        f"differing=0; last batch kernel_ms={gg_ms:.4f} device_ms={fmt_ms(gg_dev)} "
+        f"plain_ms={gg_plain_ms:.2f} "
+        f"bound_ms={gg_bound:.5f} ({gg_by}, bit-row words; over int8 S {gg_int8_bound:.5f}) "
+        f"serial_floor_ms={gg_floor:.5f} [{card}]")
 
     # K2 on the eval path: a replay of every batch's grouped NMS with
     # impl="pallas-2d".  No config key reaches `impl` (none does in the JAX

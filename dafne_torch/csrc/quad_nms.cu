@@ -3,23 +3,35 @@
 // and the exact greedy keep-set.  Built by dafne_torch/ops/kernels/build.py with
 // nvcc into a shared library with a plain C interface, loaded with ctypes.
 //
-// 1. dafne_suppression_matrix replaces the Pallas strip kernel
+// S leaves the strip kernel as bit rows: bits[b, i, w] is a 32-bit word
+// whose bit k is S[b, i, 32 w + k], so S of [8, 4096] takes 16.8 MB and
+// not 134 MB of int8, and the greedy walk reads 8x fewer bytes.
+//
+// 1. dafne_suppression_bits replaces the Pallas strip kernel
 //    dafne_tpu/ops/pallas/quad_nms.py:_suppress_strip_kernel (reached through
 //    suppression_matrix(..., class_major=True)).
 //    S[b, i, j] = 1 iff j > i, classes[b, i] == classes[b, j] >= 0 and the
 //    exact quad IoU (Cyrus–Beck clipped edge integrals) > threshold.
-//    What bounds it on the H100: f32 arithmetic.  Each visited pair costs
-//    ~1.2k f32 operations (8 clipped edge integrals) against 8 bytes of S
-//    traffic, far above the card's ~20 f32 operations per byte, so the
-//    kernel is bound by the FP32 pipes, not memory.  This first design does
-//    only the pairs that can be nonzero: candidates arrive class-major, so
-//    each 64-row strip's same-class columns form one span (computed by the
-//    wrapper); a block is one (strip, 128-column block) pair and blocks
-//    outside the strip's span exit at once, leaving the zeros the wrapper
-//    allocated.  Corners, classes and areas are staged in shared memory; one
-//    thread computes 32 pairs.  No tensor-core path exists for this math.
-//    The op order is that of the plain PyTorch version and the file is
-//    compiled with -fmad=false, so S is bit-equal to it.
+//    What bounds it on the H100: instruction issue.  A pair costs 808 f32
+//    operations (OPS_PER_PAIR) and, as compiled, more instructions than
+//    that (each of its 32 IEEE divisions is a reciprocal and a correction
+//    sequence), against 1/8 byte of S: the FP32 pipes, not memory, set
+//    the pace, and no tensor-core path exists for this math.  The design:
+//    a block is one (64-row strip, 128-column block) pair.  It loads the
+//    192 classes and lists, in shared memory, the slots (r, c) of the block
+//    that can be nonzero: j > i and equal classes >= 0 (a block-wide scan of
+//    each thread's count).  A block with none writes its 256 zero words and
+//    exits, so the caller allocates S uninitialised and no wrapper-side
+//    span computation runs.  A live block stages corners and areas in
+//    shared memory, and its 256 threads take the listed pairs in turn:
+//    every lane of a warp computes a pair that can suppress, however the
+//    classes and the diagonal cut the block (a warp per row and 32 columns
+//    would leave the lanes outside the row's class run or below the
+//    diagonal idle while the warp pays for the rest).  A
+//    verdict is one atomicOr into the block's 256 words in shared memory,
+//    stored once at the end.  The op order is that of the plain PyTorch
+//    version and the file is compiled with -fmad=false, so the bits are
+//    equal to the packed plain S.
 //
 // 2. dafne_suppression_matrix_2d replaces the Pallas 2-D tiled kernel
 //    dafne_tpu/ops/pallas/quad_nms.py:_suppress_kernel (reached through
@@ -34,15 +46,29 @@
 //    (pair_suppresses, shared with 1, so S is bit-equal to the plain version
 //    too).  So the IoU work equals 1's, and what the score order costs is the
 //    warps whose 32 columns hold a same-class pair for some lanes only (a
-//    warp pays for its slowest lane).  Zeros are the wrapper's, as for 1.
+//    warp pays for its slowest lane).  It writes int8 S; the zeros are the
+//    wrapper's.
 //
-// 3. dafne_greedy_keep replaces greedy_scan + _jacobi_fixed_point of the same
-//    file (XLA, not Pallas): the exact greedy keep-set over S in score
-//    order.  What bounds it: latency.  The walk is sequential over rows; a
-//    kept row reads its (N - i - 1) upper-triangle bytes of S and pays one
-//    __syncthreads(), a suppressed row costs one shared-memory read.  This
-//    first design is the poly_nms_gpu-style walk: one block of 1024 threads
-//    per image, alive flags in shared memory, rows in order.
+// 3. dafne_greedy_keep_bits replaces greedy_scan + _jacobi_fixed_point of
+//    the same file (XLA, not Pallas): the exact greedy keep-set over the
+//    bit rows of S in score order.  What bounds it: latency.  The walk is
+//    sequential over rows, and the bytes it needs (each kept row's upper
+//    triangle, a bit per column) take the card microseconds.  The design is
+//    JAX's blocked Gauss-Seidel with a bit-serial walk in registers inside
+//    the block: one block per problem, `removed` (N / 32 words, the rows
+//    not in keep_init or already suppressed) in shared memory, rows in
+//    chunks of 32 (one word column), one __syncthreads per chunk.  Warp 0
+//    decides chunk c: each lane holds the chunk's 32 diagonal words and
+//    walks the alive word through 32 dependent steps in registers, then
+//    ORs the kept rows' word c + 1 into `removed` for the next decision.
+//    Meanwhile the other seven warps start the cp.async copy of chunk
+//    c + 2 (128 words of each of its 32 rows, from word (c + 2) & ~3) into
+//    a four-slot shared ring and OR chunk c - 1's kept rows into words
+//    c + 1...  So a chunk, not a row, pays the barrier and the round trip
+//    to memory, and the decision does not wait for the OR step: what is
+//    left per chunk is the chain and the barrier.  A slot holds 4096
+//    columns; a wider row's later words are ORed from global memory (L2),
+//    so shared memory is 64 KB + N / 8 bytes and N reaches 49152.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,58 +167,109 @@ __device__ __forceinline__ void stage_quad(const float* cor, int src, float (*x)
   area[t] = shoelace4(qx, qy);
 }
 
+constexpr int kWordsPerBlock = kTile / 32;  // words of a row in one block
+constexpr int kSlotsPerThread = kStrip * kTile / kThreads;  // 32 (row, column) slots
+static_assert(kStrip * kWordsPerBlock == kThreads, "one word of the block per thread");
+static_assert(kSlotsPerThread == 32, "a thread's slots fit one mask word");
+
 // grid (N / kTile, N / kStrip, B), block kThreads.
 // corners [B, N, 8] f32 CCW; classes [B, N] i32 (< 0: invalid or padding);
-// span [B, N / kStrip, 2] i32 = [lo, hi) column-block range of each strip;
-// out [B, N, N] int8, zero-filled by the caller.
-__global__ void __launch_bounds__(kThreads) suppression_kernel(
+// out [B, N, N / 32] u32 bit rows, every word written (no fill needed).
+__global__ void __launch_bounds__(kThreads) suppression_bits_kernel(
     const float* __restrict__ corners, const int* __restrict__ classes,
-    const int* __restrict__ span, int8_t* __restrict__ out, int n,
-    float iou_threshold, float eps) {
+    uint32_t* __restrict__ out, int n, float iou_threshold, float eps) {
   const int cb = blockIdx.x;
   const int strip = blockIdx.y;
   const int b = blockIdx.z;
-  const int n_strips = n / kStrip;
-  const int lo = span[(b * n_strips + strip) * 2];
-  const int hi = span[(b * n_strips + strip) * 2 + 1];
-  if (cb < lo || cb >= hi) return;
 
   __shared__ float rx[4][kStrip], ry[4][kStrip], ra[kStrip];
   __shared__ float cx[4][kTile], cy[4][kTile], ca[kTile];
   __shared__ int rc[kStrip], cc[kTile];
+  __shared__ int warp_total[kThreads / 32];
+  __shared__ uint16_t pairs[kStrip * kTile];  // row * kTile + column of each active pair
+  __shared__ uint32_t bits[kStrip][kWordsPerBlock];
 
   const int r0 = strip * kStrip;
   const int c0 = cb * kTile;
-  const float* cor = corners + (size_t)b * n * 8;
+  const int words = n / 32;
   const int* cls = classes + (size_t)b * n;
+  uint32_t* out_b = out + (size_t)b * n * words;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   if (tid < kStrip) {
-    stage_quad(cor, r0 + tid, rx, ry, ra, tid);
     rc[tid] = cls[r0 + tid];
   } else if (tid < kStrip + kTile) {
-    const int t = tid - kStrip;
-    stage_quad(cor, c0 + t, cx, cy, ca, t);
-    cc[t] = cls[c0 + t];
+    cc[tid - kStrip] = cls[c0 + tid - kStrip];
+  }
+  bits[tid / kWordsPerBlock][tid % kWordsPerBlock] = 0u;
+  __syncthreads();
+
+  // A slot (r, c) is active iff j > i and the classes are equal and >= 0.
+  // Thread tid owns column c = tid % kTile and rows tid / kTile + 2 k.
+  const int c = tid % kTile;
+  const int j = c0 + c;
+  const int qc = cc[c];
+  uint32_t mine = 0;
+  if (qc >= 0) {
+#pragma unroll
+    for (int k = 0; k < kSlotsPerThread; ++k) {
+      const int r = tid / kTile + 2 * k;
+      if (j > r0 + r && rc[r] == qc) mine |= 1u << k;
+    }
+  }
+  // block-wide exclusive scan of the active counts
+  const int count = __popc(mine);
+  int incl = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int offset = incl - count;
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int t = warp_total[w];
+    offset += w < warp ? t : 0;
+    total += t;
+  }
+  // no active pair: the block is dead (live_blocks in
+  // ops/kernels/quad_nms.py is the plain form) and its words are zero
+  if (total == 0) {
+    out_b[(size_t)(r0 + tid / kWordsPerBlock) * words + c0 / 32 + tid % kWordsPerBlock] = 0u;
+    return;
+  }
+  for (uint32_t m = mine; m; m &= m - 1) {
+    const int r = tid / kTile + 2 * (__ffs(m) - 1);
+    pairs[offset++] = static_cast<uint16_t>(r * kTile + c);
+  }
+  const float* cor = corners + (size_t)b * n * 8;
+  if (tid < kStrip) {
+    stage_quad(cor, r0 + tid, rx, ry, ra, tid);
+  } else if (tid < kStrip + kTile) {
+    stage_quad(cor, c0 + tid - kStrip, cx, cy, ca, tid - kStrip);
   }
   __syncthreads();
 
-  const int c = tid % kTile;
-  const float qx[4] = {cx[0][c], cx[1][c], cx[2][c], cx[3][c]};
-  const float qy[4] = {cy[0][c], cy[1][c], cy[2][c], cy[3][c]};
-  const float qa = ca[c];
-  const int qc = cc[c];
-  int8_t* out_b = out + (size_t)b * n * n;
-  for (int r = tid / kTile; r < kStrip; r += kThreads / kTile) {
-    const int i = r0 + r;
-    const int j = c0 + c;
-    int8_t s = 0;
-    if (j > i && qc >= 0 && rc[r] == qc) {
-      const float px[4] = {rx[0][r], rx[1][r], rx[2][r], rx[3][r]};
-      const float py[4] = {ry[0][r], ry[1][r], ry[2][r], ry[3][r]};
-      s = pair_suppresses(px, py, ra[r], qx, qy, qa, iou_threshold, eps) ? 1 : 0;
+  // every lane takes an active pair: no lane idles on a pair that cannot
+  // suppress, whatever the mix of classes and the diagonal leave in a warp
+  for (int p = tid; p < total; p += kThreads) {
+    const int r = pairs[p] / kTile;
+    const int q = pairs[p] % kTile;
+    const float px[4] = {rx[0][r], rx[1][r], rx[2][r], rx[3][r]};
+    const float py[4] = {ry[0][r], ry[1][r], ry[2][r], ry[3][r]};
+    const float qx[4] = {cx[0][q], cx[1][q], cx[2][q], cx[3][q]};
+    const float qy[4] = {cy[0][q], cy[1][q], cy[2][q], cy[3][q]};
+    if (pair_suppresses(px, py, ra[r], qx, qy, ca[q], iou_threshold, eps)) {
+      atomicOr(&bits[r][q / 32], 1u << (q % 32));
     }
-    if (s) out_b[(size_t)i * n + j] = 1;
   }
+  __syncthreads();
+  out_b[(size_t)(r0 + tid / kWordsPerBlock) * words + c0 / 32 + tid % kWordsPerBlock] =
+      bits[tid / kWordsPerBlock][tid % kWordsPerBlock];
 }
 
 // grid (N / kTile column tiles, N / kTile row tiles, B), block kThreads.
@@ -255,40 +332,159 @@ __global__ void __launch_bounds__(kThreads) suppression_2d_kernel(
   }
 }
 
-constexpr int kGreedyThreads = 1024;
+constexpr int kGreedyThreads = 256;
+constexpr int kHelpers = kGreedyThreads - 32;  // warps 1..: copies and OR steps
+constexpr int kChunk = 32;   // rows decided per step: one word column
+constexpr int kStages = 4;   // chunk slots: decided, ORed, two in flight
+constexpr int kRingWords = 128;  // words of a chunk's rows staged in a slot: 4096 columns
+constexpr int kGreedyMaxWords = 1536;  // N <= 49152: `removed` (N / 32 words) in shared memory
+constexpr int kRingBytes = kStages * kChunk * kRingWords * 4;  // 64 KB
+constexpr int kGreedyMaxSmem = kRingBytes + kGreedyMaxWords * 4;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
-// grid (B,), block kGreedyThreads, dynamic shared memory n bytes.
-// s [B, N, N] int8; keep_init / keep [B, N] uint8 (0/1).
-__global__ void __launch_bounds__(kGreedyThreads) greedy_keep_kernel(
-    const int8_t* __restrict__ s, const uint8_t* __restrict__ keep_init,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kStages - 3 committed groups of this thread are in flight
+__device__ __forceinline__ void cp_async_wait_chunk() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 3) : "memory");
+}
+
+// Words [c & ~3, staged_end(c)) of chunk c's rows sit in its ring slot.
+__device__ __forceinline__ int staged_end(int c, int words) {
+  return min(words, (c & ~3) + kRingWords);
+}
+
+// A helper thread's share of copying the staged words of rows 32 c ..
+// 32 c + 31 into buf [kChunk][kRingWords], word c & ~3 first: helper warp h
+// takes rows h - 1, h - 1 + 7, ..., its lanes the 16-byte pieces (W % 4 == 0).
+__device__ __forceinline__ void stage_chunk(const uint32_t* bits_b, uint32_t* buf, int c,
+                                            int words) {
+  const int w0 = c & ~3;
+  const int pieces = (staged_end(c, words) - w0) / 4;
+  for (int r = threadIdx.x / 32 - 1; r < kChunk; r += kHelpers / 32) {
+    for (int v = threadIdx.x % 32; v < pieces; v += 32) {
+      cp_async16(buf + r * kRingWords + 4 * v,
+                 bits_b + (size_t)(kChunk * c + r) * words + w0 + 4 * v);
+    }
+  }
+}
+
+// grid (B,), block kGreedyThreads, dynamic shared memory kRingBytes + 4 W.
+// bits [B, N, W = N / 32] u32 (bit k of word w in row i is S[i, 32 w + k];
+// only bits j > i are read); keep_init / keep [B, N] uint8 (0/1);
+// N % 128 == 0, W <= kGreedyMaxWords.
+//
+// Iteration c: warp 0 decides chunk c while the helper warps start the copy
+// of chunk c + 2 and OR chunk c - 1's kept rows into `removed` (words
+// c + 1..; word c came from warp 0 at the end of iteration c - 1, so each
+// decision waits for one barrier and no OR step).  One __syncthreads per
+// chunk.  A slot stages kRingWords words of each row, all of them up to
+// N = 4096; past that (kWide) the OR step reads a row's later words from
+// global memory (L2), so shared memory grows with W and not with 32 W per
+// slot.  The narrow instantiation (N <= 4096) compiles without that loop.
+template <bool kWide>
+__global__ void __launch_bounds__(kGreedyThreads) greedy_keep_bits_kernel(
+    const uint32_t* __restrict__ bits, const uint8_t* __restrict__ keep_init,
     uint8_t* __restrict__ keep, int n) {
-  extern __shared__ uint8_t alive[];
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ uint32_t kept_words[2];  // chunk c's kept rows, by c % 2
+  const int words = n / 32;
+  uint32_t* ring = smem;                                     // [kStages][kChunk][kRingWords]
+  uint32_t* removed = smem + kStages * kChunk * kRingWords;  // [W]
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int8_t* sb = s + (size_t)b * n * n;
-  for (int j = tid; j < n; j += kGreedyThreads) alive[j] = keep_init[(size_t)b * n + j];
-  __syncthreads();
-  for (int i = 0; i < n; ++i) {
-    // every thread reads the same flag: nothing writes alive[i] after the
-    // barrier that closed the last kept row before i
-    if (!alive[i]) continue;
-    const int8_t* row = sb + (size_t)i * n;
-    for (int j = i + 1 + tid; j < n; j += kGreedyThreads) {
-      if (row[j]) alive[j] = 0;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const uint32_t* bits_b = bits + (size_t)b * n * words;
+  auto slot = [&](int chunk) { return ring + (chunk % kStages) * kChunk * kRingWords; };
+
+  if (warp > 0) {
+    for (int k = 0; k < kStages - 2; ++k) {
+      if (k < words) stage_chunk(bits_b, slot(k), k, words);
+      cp_async_commit();
     }
-    __syncthreads();
   }
-  for (int j = tid; j < n; j += kGreedyThreads) keep[(size_t)b * n + j] = alive[j];
+  // a row outside keep_init counts as removed from the start
+  for (int w = warp; w < words; w += kGreedyThreads / 32) {
+    const uint32_t init = __ballot_sync(kFull, keep_init[(size_t)b * n + 32 * w + lane] != 0);
+    if (lane == 0) removed[w] = ~init;
+  }
+  for (int c = 0; c < words; ++c) {
+    if (warp > 0) cp_async_wait_chunk();
+    __syncthreads();  // chunk c in shared memory, removed[c] final, slot of c - 2 free
+    if (warp == 0) {
+      // every lane walks the chunk's 32 rows on the same registers; row r
+      // suppresses only its later columns of the diagonal word
+      const uint32_t* buf = slot(c);
+      const int d = c - (c & ~3);  // the diagonal word's place in the slot
+      const uint32_t next = c + 1 < words ? buf[lane * kRingWords + d + 1] : 0u;
+      uint32_t alive = ~removed[c];
+      uint32_t diag[kChunk];
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) {
+        diag[r] = buf[r * kRingWords + d] & (r == kChunk - 1 ? 0u : (kFull << (r + 1)));
+      }
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) {
+        if ((alive >> r) & 1u) alive &= ~diag[r];
+      }
+      keep[(size_t)b * n + kChunk * c + lane] = (alive >> lane) & 1u;
+      // the kept rows' word c + 1, for the next decision
+      const uint32_t v = __reduce_or_sync(kFull, next & (0u - ((alive >> lane) & 1u)));
+      if (lane == 0) {
+        kept_words[c & 1] = alive;
+        if (v) atomicOr(&removed[c + 1], v);
+      }
+    } else {
+      if (c + kStages - 2 < words) stage_chunk(bits_b, slot(c + kStages - 2), c + kStages - 2, words);
+      cp_async_commit();  // empty near the end: the waits still count in order
+      const uint32_t kept = c > 0 ? kept_words[(c - 1) & 1] : 0u;
+      if (kept) {
+        const uint32_t* buf = slot(c - 1);
+        const int w0 = (c - 1) & ~3;
+        const int staged = staged_end(c - 1, words);
+        for (int w = c + 1 + tid - 32; w < staged; w += kHelpers) {
+          uint32_t acc = 0;
+#pragma unroll
+          for (int r = 0; r < kChunk; ++r) {
+            acc |= buf[r * kRingWords + w - w0] & (0u - ((kept >> r) & 1u));
+          }
+          if (acc) atomicOr(&removed[w], acc);
+        }
+        if constexpr (kWide) {
+          // the words past the slot, from global memory.  Every row is
+          // loaded and masked, so the 32 loads are in flight together
+          const uint32_t* rows = bits_b + (size_t)kChunk * (c - 1) * words;
+          for (int w = staged + tid - 32; w < words; w += kHelpers) {
+            uint32_t acc = 0;
+#pragma unroll
+            for (int r = 0; r < kChunk; ++r) {
+              acc |= __ldg(rows + (size_t)r * words + w) & (0u - ((kept >> r) & 1u));
+            }
+            if (acc) atomicOr(&removed[w], acc);
+          }
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int dafne_suppression_matrix(
-    const float* corners, const int* classes, const int* span, int8_t* out,
-    int batch, int n, float iou_threshold, float eps, void* stream) {
+extern "C" int dafne_suppression_bits(
+    const float* corners, const int* classes, uint32_t* out, int batch, int n,
+    float iou_threshold, float eps, void* stream) {
   const dim3 grid(n / kTile, n / kStrip, batch);
-  suppression_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      corners, classes, span, out, n, iou_threshold, eps);
+  suppression_bits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      corners, classes, out, n, iou_threshold, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,10 +497,29 @@ extern "C" int dafne_suppression_matrix_2d(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dafne_greedy_keep(
-    const int8_t* s, const uint8_t* keep_init, uint8_t* keep, int batch, int n,
+extern "C" int dafne_greedy_keep_bits(
+    const uint32_t* bits, const uint8_t* keep_init, uint8_t* keep, int batch, int n,
     void* stream) {
-  greedy_keep_kernel<<<batch, kGreedyThreads, n, static_cast<cudaStream_t>(stream)>>>(
-      s, keep_init, keep, n);
+  // above 48 KB of dynamic shared memory needs an opt-in, a per-device
+  // attribute of each kernel: set it once per device, for the largest N
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev]) {
+    const void* kernels[] = {reinterpret_cast<const void*>(greedy_keep_bits_kernel<false>),
+                             reinterpret_cast<const void*>(greedy_keep_bits_kernel<true>)};
+    for (const void* k : kernels) {
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kGreedyMaxSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    opted_in[dev] = true;
+  }
+  const int smem = kRingBytes + (n / 32) * static_cast<int>(sizeof(uint32_t));
+  const auto kernel =
+      n / 32 > kRingWords ? greedy_keep_bits_kernel<true> : greedy_keep_bits_kernel<false>;
+  kernel<<<batch, kGreedyThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      bits, keep_init, keep, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,7 +46,7 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
@@ -55,7 +55,7 @@ def _lib_path(name: str) -> str:
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless it is built already.  Returns nvcc's
     output (with ptxas's register report), or "" when nothing was built."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if os.path.exists(out):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -72,7 +72,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
     if name not in _LIBS:
         build(name)
-        _LIBS[name] = ctypes.CDLL(_lib_path(name))
+        _LIBS[name] = ctypes.CDLL(lib_path(name))
     return _LIBS[name]
 
 

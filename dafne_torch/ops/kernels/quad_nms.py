@@ -3,7 +3,9 @@
 Counterpart of ``dafne_tpu/ops/pallas/quad_nms.py``.  The suppression matrix
 has two kernels, as there: the strip kernel for class-major candidates (K1,
 ``class_major=True``) and the 2-D tiled kernel for any score order (K2).
-Each function has
+K1 writes S as bit rows (``pack_suppression_bits``: [B, N, N / 32] int32
+words, bit k of word w in row i is S[i, 32 w + k]), and the greedy kernel
+walks those; K2 writes int8 S, which NMS packs.  Each function has
   - a CUDA kernel (``dafne_torch/csrc/quad_nms.cu``) behind a wrapper that
     checks its inputs, launches on the current stream, raises on a launch
     error and counts its launches (``<wrapper>.launches``);
@@ -127,25 +129,42 @@ def suppression_matrix_plain(corners, classes, iou_threshold: float, eps: float 
     return out
 
 
-def strip_spans(classes: torch.Tensor) -> torch.Tensor:
-    """[B, N / STRIP, 2] int32: each strip's [lo, hi) range of TILE-wide
-    column blocks that can hold a nonzero of S.
+def pack_suppression_bits(s: torch.Tensor) -> torch.Tensor:
+    """S [B, N, N] (nonzero = suppresses), N % 32 == 0 -> bit rows [B, N,
+    N / 32] int32: bit k of word w in row i is S[i, 32 w + k].
 
-    Candidates are class-major (ascending class, invalid last), so the
-    columns j > i whose class lies in [min, max] of a strip's valid row
-    classes form one span; outside it S is zero.  The Pallas strip kernel
-    computes the same span in-kernel."""
+    Packed a byte at a time, so no temporary is wider than S: a word is
+    four little-endian bytes (on the card and on the CPUs torch runs on),
+    and byte k of word w holds S[i, 32 w + 8 k .. 32 w + 8 k + 7]."""
+    b, n, _ = s.shape
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=s.device)
+    octets = (s != 0).reshape(b, n, n // 8, 8).to(torch.uint8) * weights
+    return octets.sum(-1, dtype=torch.uint8).view(torch.int32)
+
+
+def unpack_suppression_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Bit rows [B, N, N / 32] int32 -> S [B, N, N] int8 (0/1), a byte at
+    a time as pack_suppression_bits."""
+    b, n, w = bits.shape
+    shifts = torch.arange(8, device=bits.device, dtype=torch.uint8)
+    s = (bits.contiguous().view(torch.uint8)[..., None] >> shifts) & 1
+    return s.view(torch.int8).reshape(b, n, w * 32)
+
+
+def live_blocks(classes: torch.Tensor) -> torch.Tensor:
+    """[B, N / STRIP, N / TILE] bool: the (strip, column block) blocks of S
+    that the strip kernel computes, those holding a pair j > i whose
+    classes are equal and >= 0.  Every other block of S is zero, and the
+    kernel writes its words as zeros without loading a corner."""
     b, n = classes.shape
-    rc = classes.reshape(b, n // STRIP, STRIP)
-    rmin = torch.where(rc >= 0, rc, 2**30).amin(-1, keepdim=True)  # [B, S, 1]
-    rmax = torch.where(rc >= 0, rc, -1).amax(-1, keepdim=True)
-    ccls = torch.where(classes < 0, -2, classes)[:, None, :]  # [B, 1, N]
     col = torch.arange(n, device=classes.device)
-    r0 = (torch.arange(n // STRIP, device=classes.device) * STRIP)[:, None]
-    hit = (ccls >= rmin) & (ccls <= rmax) & (col > r0)  # [B, S, N]
-    lo = torch.where(hit, col, n).amin(-1)
-    hi = torch.where(hit, col, -1).amax(-1) + 1
-    return torch.stack([lo // TILE, (hi + TILE - 1) // TILE], -1).to(torch.int32).contiguous()
+    out = torch.empty((b, n // STRIP, n // TILE), dtype=torch.bool, device=classes.device)
+    for s in range(n // STRIP):
+        rc = classes[:, s * STRIP : (s + 1) * STRIP, None]  # [B, R, 1]
+        later = col[None, None, :] > col[s * STRIP : (s + 1) * STRIP, None]
+        pair = (rc == classes[:, None, :]) & (rc >= 0) & later  # [B, R, N]
+        out[:, s] = pair.view(b, STRIP, n // TILE, TILE).any(-1).any(1)
+    return out
 
 
 def tile_interactions(classes: torch.Tensor) -> torch.Tensor:
@@ -169,12 +188,12 @@ def _lib():
     lib = load("quad_nms")
     if not getattr(lib, "_dafne_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dafne_suppression_matrix.argtypes = [p, p, p, p, i, i, f, f, p]
-        lib.dafne_suppression_matrix.restype = i
+        lib.dafne_suppression_bits.argtypes = [p, p, p, i, i, f, f, p]
+        lib.dafne_suppression_bits.restype = i
         lib.dafne_suppression_matrix_2d.argtypes = [p, p, p, i, i, f, f, p]
         lib.dafne_suppression_matrix_2d.restype = i
-        lib.dafne_greedy_keep.argtypes = [p, p, p, i, i, p]
-        lib.dafne_greedy_keep.restype = i
+        lib.dafne_greedy_keep_bits.argtypes = [p, p, p, i, i, p]
+        lib.dafne_greedy_keep_bits.restype = i
         lib._dafne_typed = True
     return lib
 
@@ -195,26 +214,36 @@ def _check_suppression_inputs(what, corners, classes):
     return b, n
 
 
-def suppression_matrix_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
-    """Launch the suppression kernel: corners [B, N, 8] f32 (CCW, class-major,
-    score-descending within a class), classes [B, N] i32 (< 0 for invalid
-    and padded slots), N % TILE == 0.  Returns S [B, N, N] int8."""
-    b, n = _check_suppression_inputs("suppression_matrix_cuda", corners, classes)
+def suppression_bits_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
+    """Launch the strip suppression kernel (K1): corners [B, N, 8] f32 (CCW,
+    class-major, score-descending within a class), classes [B, N] i32 (< 0
+    for invalid and padded slots), N % TILE == 0.  Returns S as bit rows
+    [B, N, N / 32] int32 (see pack_suppression_bits); the kernel writes
+    every word."""
+    b, n = _check_suppression_inputs("suppression_bits_cuda", corners, classes)
     lib = _lib()
     with torch.cuda.device(corners.device):
-        spans = strip_spans(classes)
-        out = torch.zeros((b, n, n), dtype=torch.int8, device=corners.device)
-        code = lib.dafne_suppression_matrix(
-            corners.data_ptr(), classes.data_ptr(), spans.data_ptr(), out.data_ptr(),
-            b, n, float(iou_threshold), float(eps),
-            torch.cuda.current_stream().cuda_stream,
+        out = torch.empty((b, n, n // 32), dtype=torch.int32, device=corners.device)
+        code = lib.dafne_suppression_bits(
+            corners.data_ptr(), classes.data_ptr(), out.data_ptr(), b, n,
+            float(iou_threshold), float(eps), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(code, "suppression_matrix_cuda")
-    suppression_matrix_cuda.launches += 1
+    _raise_on(code, "suppression_bits_cuda")
+    suppression_bits_cuda.launches += 1
     return out
 
 
-suppression_matrix_cuda.launches = 0
+suppression_bits_cuda.launches = 0
+
+
+def suppression_bits(corners, classes, iou_threshold: float, eps: float = 1e-6):
+    """S of class-major candidates as bit rows [B, N, N / 32] int32: K1 for
+    CUDA tensors, the packed plain S for CPU tensors."""
+    if corners.is_cuda:
+        return suppression_bits_cuda(corners, classes, iou_threshold, eps)
+    if corners.device.type == "cpu":
+        return pack_suppression_bits(suppression_matrix_plain(corners, classes, iou_threshold, eps))
+    raise ValueError(f"suppression_bits: unsupported device {corners.device}")
 
 
 def suppression_matrix_2d_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
@@ -242,11 +271,13 @@ def suppression_matrix(corners, classes, iou_threshold: float, eps: float = 1e-6
                        class_major: bool = False):
     """S [B, N, N] int8 (see suppression_matrix_plain).  For CUDA tensors a
     kernel: the strip kernel when `class_major` (valid only for class-major
-    candidates, invalid last), else the 2-D tiled kernel, which takes any
-    score-descending order; for CPU tensors the plain version."""
+    candidates, invalid last; its bit rows unpacked), else the 2-D tiled
+    kernel, which takes any score-descending order; for CPU tensors the
+    plain version.  NMS takes the bit rows themselves (suppression_bits)."""
     if corners.is_cuda:
-        kernel = suppression_matrix_cuda if class_major else suppression_matrix_2d_cuda
-        return kernel(corners, classes, iou_threshold, eps)
+        if class_major:
+            return unpack_suppression_bits(suppression_bits_cuda(corners, classes, iou_threshold, eps))
+        return suppression_matrix_2d_cuda(corners, classes, iou_threshold, eps)
     if corners.device.type == "cpu":
         return suppression_matrix_plain(corners, classes, iou_threshold, eps)
     raise ValueError(f"suppression_matrix: unsupported device {corners.device}")
@@ -268,46 +299,48 @@ def greedy_keep_plain(s: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
     return alive
 
 
-_GREEDY_MAX_N = 48 * 1024  # alive flags live in (static-limit) shared memory
+_GREEDY_MAX_N = 48 * 1024  # the kernel's `removed` words (N / 8 bytes) in shared memory
 
 
-def greedy_keep_cuda(s: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
-    """Launch the greedy kernel: s [B, N, N] int8, keep_init [B, N] bool.
-    Returns keep [B, N] bool."""
+def greedy_keep_bits_cuda(bits: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
+    """Launch the greedy kernel: bits [B, N, N / 32] int32, keep_init [B, N]
+    bool, N % TILE == 0.  Returns keep [B, N] bool."""
     b, n = keep_init.shape
-    if not 1 <= n <= _GREEDY_MAX_N or b < 1:
-        raise ValueError(f"greedy_keep_cuda: need B >= 1 and 1 <= N <= {_GREEDY_MAX_N}, got {b}x{n}")
-    check_cuda("s", s, torch.int8, (b, n, n))
+    if n % TILE or not TILE <= n <= _GREEDY_MAX_N or b < 1:
+        raise ValueError(f"greedy_keep_bits_cuda: need B >= 1, N % {TILE} == 0 and "
+                         f"N <= {_GREEDY_MAX_N}, got {b}x{n}")
+    check_cuda("bits", bits, torch.int32, (b, n, n // 32))
     check_cuda("keep_init", keep_init, torch.bool, (b, n))
-    if s.device != keep_init.device:
-        raise ValueError("greedy_keep_cuda: s and keep_init on different devices")
+    if bits.device != keep_init.device:
+        raise ValueError("greedy_keep_bits_cuda: bits and keep_init on different devices")
     lib = _lib()
-    with torch.cuda.device(s.device):
+    with torch.cuda.device(bits.device):
         init = keep_init.view(torch.uint8)
-        keep = torch.empty((b, n), dtype=torch.uint8, device=s.device)
-        code = lib.dafne_greedy_keep(
-            s.data_ptr(), init.data_ptr(), keep.data_ptr(), b, n,
+        keep = torch.empty((b, n), dtype=torch.uint8, device=bits.device)
+        code = lib.dafne_greedy_keep_bits(
+            bits.data_ptr(), init.data_ptr(), keep.data_ptr(), b, n,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(code, "greedy_keep_cuda")
-    greedy_keep_cuda.launches += 1
+    _raise_on(code, "greedy_keep_bits_cuda")
+    greedy_keep_bits_cuda.launches += 1
     return keep.view(torch.bool)
 
 
-greedy_keep_cuda.launches = 0
+greedy_keep_bits_cuda.launches = 0
 
 
-def greedy_keep(s: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
-    """Exact greedy keep-set over S: the CUDA kernel for CUDA tensors, the
-    plain walk for CPU tensors."""
-    if s.is_cuda:
-        return greedy_keep_cuda(s, keep_init)
-    if s.device.type == "cpu":
-        return greedy_keep_plain(s, keep_init)
-    raise ValueError(f"greedy_keep: unsupported device {s.device}")
+def greedy_keep_bits(bits: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
+    """Exact greedy keep-set over the bit rows of S (only bits j > i are
+    read): the CUDA kernel for CUDA tensors, the plain walk over the
+    unpacked S for CPU tensors."""
+    if bits.is_cuda:
+        return greedy_keep_bits_cuda(bits, keep_init)
+    if bits.device.type == "cpu":
+        return greedy_keep_plain(unpack_suppression_bits(bits), keep_init)
+    raise ValueError(f"greedy_keep_bits: unsupported device {bits.device}")
 
 
 def reset_launch_counts() -> None:
-    suppression_matrix_cuda.launches = 0
+    suppression_bits_cuda.launches = 0
     suppression_matrix_2d_cuda.launches = 0
-    greedy_keep_cuda.launches = 0
+    greedy_keep_bits_cuda.launches = 0

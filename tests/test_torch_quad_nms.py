@@ -16,11 +16,12 @@ from dafne_tpu.ops.nms import rotated_nms as jax_rotated_nms
 from dafne_tpu.ops.pallas.quad_nms import greedy_scan, suppression_matrix
 
 from dafne_torch.ops.kernels.quad_nms import (
+    STRIP,
     TILE,
-    greedy_keep,
-    greedy_keep_cuda,
-    strip_spans,
-    suppression_matrix_cuda,
+    greedy_keep_bits_cuda,
+    greedy_keep_plain,
+    live_blocks,
+    suppression_bits_cuda,
     suppression_matrix_plain,
 )
 from dafne_torch.ops.nms import _as_ccw_rows, rotated_nms
@@ -92,19 +93,23 @@ def test_plain_suppression_single_class_and_all_invalid():
     assert not _port_s(corners, none, 0.3).any()
 
 
-def test_strip_spans_cover_every_nonzero():
-    """The kernel's per-strip column spans hold every nonzero of S."""
+def test_live_blocks_cover_every_nonzero():
+    """The strip kernel's live (strip, column block) blocks hold every
+    nonzero of S; a block is live iff it holds a same-class pair j > i."""
     n = 4 * TILE
     rng = np.random.RandomState(5)
     corners = torch.from_numpy(np.array(jax_as_ccw_rows(jnp.asarray(_random_boxes(n, 5, 80.0)))))
     classes = torch.from_numpy(_class_major(n, 400, 4, rng))
     s = suppression_matrix_plain(corners[None], classes[None], 0.1)[0].numpy()
-    spans = strip_spans(classes[None])[0].numpy()
-    mask = np.zeros_like(s, bool)
-    for strip, (lo, hi) in enumerate(spans):
-        mask[strip * 64 : (strip + 1) * 64, lo * TILE : hi * TILE] = True
+    live = live_blocks(classes[None])[0].numpy()
+    mask = np.kron(live, np.ones((STRIP, TILE), bool))
     assert s.any() and not (s.astype(bool) & ~mask).any()
-    assert (spans[-1] == [n // TILE, 0]).all()  # an all-invalid strip visits nothing
+    c = classes.numpy()
+    pair = np.triu((c[:, None] == c[None, :]) & (c[:, None] >= 0), 1)
+    want = pair.reshape(n // STRIP, STRIP, n // TILE, TILE).any((1, 3))
+    np.testing.assert_array_equal(live, want)
+    assert not live[-1].any()  # an all-invalid strip loads no corner
+    assert live.any() and not live.all()
 
 
 def test_plain_greedy_equals_greedy_scan():
@@ -119,7 +124,7 @@ def test_plain_greedy_equals_greedy_scan():
         sup = np.triu(sup, k=1).astype(np.int8)
         valid = rng.uniform(size=n) > 0.1
         want = np.asarray(greedy_scan(jnp.asarray(sup), jnp.asarray(valid), block=128))
-        got = greedy_keep(torch.from_numpy(sup)[None], torch.from_numpy(valid)[None])[0]
+        got = greedy_keep_plain(torch.from_numpy(sup)[None], torch.from_numpy(valid)[None])[0]
         np.testing.assert_array_equal(got.numpy(), want, err_msg=str(density))
 
 
@@ -159,8 +164,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     corners = torch.zeros(1, TILE, 8)
     classes = torch.zeros(1, TILE, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        suppression_matrix_cuda(corners, classes, 0.1)
+        suppression_bits_cuda(corners, classes, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
-        greedy_keep_cuda(torch.zeros(1, TILE, TILE, dtype=torch.int8),
-                         torch.ones(1, TILE, dtype=torch.bool))
-    assert suppression_matrix_cuda.launches == 0 and greedy_keep_cuda.launches == 0
+        greedy_keep_bits_cuda(torch.zeros(1, TILE, TILE // 32, dtype=torch.int32),
+                              torch.ones(1, TILE, dtype=torch.bool))
+    assert suppression_bits_cuda.launches == 0 and greedy_keep_bits_cuda.launches == 0

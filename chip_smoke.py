@@ -30,7 +30,10 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   6. the assignment kernel (K3) against its plain version at B = 8,
      K = 21 824 locations (a 1024^2 canvas), M = 256 gt slots, on the packed
      gts of synthetic train scenes, on 256 valid slots and on duplicated
-     gts (ties): min_area bit-equal and argmin equal;
+     gts (ties): min_area bit-equal and argmin equal; with its device time,
+     the pairs it runs its pair body on (its per-block gt lists) against
+     the valid pairs, and its bound over the candidate pairs beside the
+     earlier one over every valid pair;
   7. the training path: engine/train_loop.py::do_train at full width (the
      DOTA-1.0 1024 recipe, batch 8, bf16 compute with f32 params, flips and
      90-degree rotations), 3 warm-up steps, then TRAIN_STEPS timed steps in
@@ -41,10 +44,11 @@ Phases (any failure exits nonzero; no phase's failure is caught):
   9. the narrow float32 model, batch 2 at 256^2, one train step on the card
      (kernel) and on the CPU (plain): labels equal on >= 99.9% of the
      locations, every loss within 1e-4 relative, params within atol 1e-5;
- 10. the 2-D tiled suppression kernel (K2) against its plain version at
-     B = 8, N = 4096: a dense 15-class mix in score order and phase 2's
-     25%-valid class-major mix (there also against K1): S equal entry for
-     entry, with the tiles and pairs it visits;
+ 10. the 2-D tiled suppression kernel (K2, S as bit rows) against its
+     plain version, packed, and against K1 (which computes the same S for
+     any order) at B = 8, N = 4096: a dense 15-class mix in score order and
+     phase 2's 25%-valid class-major mix: bit rows equal word for word, with
+     its live tiles, device time and bound;
  11. the eval path at full width: a checkpoint of the DOTA-1.0 1024 model
      (seeded random weights, cls bias -2), then the CLI's --eval-only in
      this process on N_EVAL_SCENES synthetic 1024^2 scenes with per-class-
@@ -55,8 +59,10 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      mix; K1's bits equal to the packed plain S and the greedy kernel equal
      to the plain walk on every batch's [B * G, K] S; then a replay of
      every batch's grouped NMS with
-     impl="pallas-2d" (K2) equal to impl="pallas", and K2 against its plain
-     version and K1 on the grouped path's own [B * G, K] inputs.  No config
+     impl="pallas-2d" (K2's bit rows straight into the greedy kernel) equal
+     to impl="pallas", running no kernel that impl="pallas" does not but
+     K2 (no int8 S, fill or pack), and K2 against its plain version and K1
+     on the grouped path's own [B * G, K] inputs.  No config
      key reaches `impl`, so the CLI never launches K2: its launches in the
      kernels line are the replay's;
  12. the narrow float32 model through do_test on 8 synthetic 256^2 scenes
@@ -72,7 +78,8 @@ The line before the last holds one JSON object with every kernel's numbers
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
 which hold the wrapper's host time when the card waits for the launch;
-device_ms from a torch.profiler trace, the kernel alone.
+device_ms (also in the kernels line) from a torch.profiler trace, the
+kernel alone.
 """
 
 from __future__ import annotations
@@ -106,6 +113,7 @@ SM_CLOCK_HZ = 1.98e9
 SERIAL_STEP_CYCLES = 4
 # kernel names as the profiler reports them
 K1_KERNEL, GREEDY_KERNEL = "suppression_bits_kernel", "greedy_keep_bits_kernel"
+K2_KERNEL, K3_KERNEL = "suppression_bits_2d_kernel", "assign_argmin_kernel"
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8  # main-path batch, and the batch of the kernel checks
@@ -189,6 +197,28 @@ def device_ms(fn, kernel, reps=20, traces=3):
     return None
 
 
+def device_kernels(fn, traces=3):
+    """{kernel name: launches} (fills and copies included) of one call of
+    fn() on the card, from torch.profiler traces after one warm-up call:
+    per name the most of `traces` traces, since a trace drops events now
+    and then."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = Counter()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                most[e.key] = max(most[e.key], e.count)
+    return most
+
+
 def fmt_ms(ms, digits=4):
     return "not measured" if ms is None else f"{ms:.{digits}f}"
 
@@ -242,14 +272,14 @@ def class_major_mix(rng, b, n, n_valid, n_classes=15, class_major=True):
     return corners, torch.from_numpy(classes).cuda()
 
 
-def suppression_bound(classes, n, s_bits=True):
+def suppression_bound(classes, n):
     """((bound ms, bound_by), same-class pairs, ops bound ms without FMA,
     {"bits": ms, "int8": ms}): the larger of the f32 work these inputs need
     (OPS_PER_PAIR for every same-class pair j > i) over F32_FLOPS and the
-    bytes (corners and classes read once, S written once: N^2 / 8 bytes as
-    bit rows with `s_bits` (K1), N^2 as int8 (K2)) over the card's memory
-    rate.  The third item is the work over F32_OPS_NO_FMA, the rate the
-    kernel as built can reach; the last, the bytes bound of either layout."""
+    bytes (corners and classes read once, S written once as bit rows, N^2 /
+    8 bytes, as K1 and K2 write it) over the card's memory rate.  The third
+    item is the work over F32_OPS_NO_FMA, the rate the kernels as built can
+    reach; the last, the bytes bound of S as bit rows and as int8."""
     from dafne_torch.ops.kernels.quad_nms import OPS_PER_PAIR
 
     cls = classes.cpu().numpy()
@@ -261,7 +291,7 @@ def suppression_bound(classes, n, s_bits=True):
     t_ops = pairs * OPS_PER_PAIR / F32_FLOPS * 1e3
     by_layout = {k: b * (n * 8 * 4 + n * 4 + s) / HBM_BYTES_PER_S * 1e3
                  for k, s in (("bits", n * n // 8), ("int8", n * n))}
-    t_bytes = by_layout["bits" if s_bits else "int8"]
+    t_bytes = by_layout["bits"]
     bound = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
     return bound, pairs, pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3, by_layout
 
@@ -283,20 +313,24 @@ def greedy_bound(keep, n):
             int8_bytes / HBM_BYTES_PER_S * 1e3, floor)
 
 
-def assign_bound(k, gt_valid, m):
-    """((bound ms, bound_by), valid pairs, ops bound ms without FMA): the
-    larger of the f32 work these inputs need (OPS_PER_PAIR for every
-    (location, valid gt) pair) over F32_FLOPS and the bytes (20 per
-    location for its point, stride and size range, 53 per gt slot, 8 per
-    location and image written) over the card's memory rate."""
+def assign_bound(pairs, k, b, m):
+    """((bound ms, bound_by), ops ms over every valid pair, ops bound ms
+    without FMA): the larger of the f32 work these inputs need
+    (OPS_PER_PAIR for every candidate pair of pair_counts: a location
+    inside the gt's clipped center box with its max-ltrb in its size
+    range, where only the point-in-quad test is left to decide whether the
+    value is finite) over F32_FLOPS and the bytes (20 per location for its point,
+    stride and size range, 53 per gt slot, 8 per location and image
+    written) over the card's memory rate.  The second item is the bound of
+    earlier runs, OPS_PER_PAIR for every (location, valid gt) pair: a
+    kernel that culls gts no longer does that work."""
     from dafne_torch.ops.kernels.assign import OPS_PER_PAIR
 
-    b = gt_valid.shape[0]
-    pairs = k * int(gt_valid.sum())
-    t_ops = pairs * OPS_PER_PAIR / F32_FLOPS * 1e3
+    t_ops = pairs["candidate"] * OPS_PER_PAIR / F32_FLOPS * 1e3
     t_bytes = (k * 20 + b * m * 53 + b * k * 8) / HBM_BYTES_PER_S * 1e3
     bound = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-    return bound, pairs, pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3
+    return (bound, pairs["valid"] * OPS_PER_PAIR / F32_FLOPS * 1e3,
+            pairs["candidate"] * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3)
 
 
 def full_gts(rng, b, m):
@@ -313,8 +347,8 @@ def full_gts(rng, b, m):
 
 def check_assign(spec, tables, g, what, card):
     """K3 against its plain version on the gts `g`: raises unless min_area
-    is bit-equal and argmin equal.  Returns (kernel ms, plain ms, bound ms,
-    bound_by, max |min_area diff|, (min_area, argmin))."""
+    is bit-equal and argmin equal.  Returns (kernel ms, device ms, plain ms,
+    bound ms, bound_by, max |min_area diff|, (min_area, argmin))."""
     from dafne_torch.ops.kernels import assign as A
 
     _, locations, loc_strides, size_ranges = tables
@@ -328,15 +362,20 @@ def check_assign(spec, tables, g, what, card):
     if not torch.equal(km, pm) or arg_diff:
         raise SystemExit(f"assignment kernel disagrees with its plain version on {what}: "
                          f"max |min_area diff| {err}, {arg_diff} argmin differ")
-    k, m = locations.shape[0], g["gt_valid"].shape[1]
-    (bound, by), pairs, no_fma = assign_bound(k, g["gt_valid"], m)
+    (b, m), k = g["gt_valid"].shape, locations.shape[0]
+    pairs = A.pair_counts(locations, loc_strides, size_ranges, g["gt_hbox"], g["gt_valid"], spec)
+    (bound, by), valid_bound, no_fma = assign_bound(pairs, k, b, m)
     ms = cuda_ms(lambda: A.assign_argmin_cuda(*args))
+    dev = device_ms(lambda: A.assign_argmin_cuda(*args), K3_KERNEL)
     plain_ms = cuda_ms(lambda: A.assign_argmin_plain(*args), reps=3, warmup=1)
-    log(f"[K3 {what}] B={g['gt_valid'].shape[0]} K={k} M={m} valid_gts={int(g['gt_valid'].sum())} "
+    log(f"[K3 {what}] B={b} K={k} M={m} valid_gts={int(g['gt_valid'].sum())} "
         f"positives={int((km < A.INF).sum())} differing min_area=0 argmin=0 kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.3f} bound_ms={bound:.5f} ({by}; valid pairs {pairs}, "
-        f"{A.OPS_PER_PAIR} f32 ops each) ops_bound_no_fma_ms={no_fma:.5f} [{card}]")
-    return ms, plain_ms, bound, by, err, (km, ka)
+        f"device_ms={fmt_ms(dev)} plain_ms={plain_ms:.3f}; pairs: valid {pairs['valid']}, "
+        f"listed {pairs['listed']} ({pairs['listed'] / max(pairs['valid'], 1):.4f} of the valid: "
+        f"what the pair body runs on), candidate {pairs['candidate']}; bound_ms={bound:.5f} "
+        f"({by}; {A.OPS_PER_PAIR} f32 ops per candidate pair) ops_bound_no_fma_ms={no_fma:.5f}; "
+        f"earlier bound over every valid pair {valid_bound:.5f} [{card}]")
+    return ms, dev, plain_ms, bound, by, err, (km, ka)
 
 
 def check_k1(corners, classes, thr, what):
@@ -365,36 +404,39 @@ def check_greedy(bits, s, keep_init, what):
     return k_kernel
 
 
-def check_k2(corners, classes, what, card, class_major):
-    """K2 against its plain version and, on class-major input, against K1:
-    raises unless S is equal entry for entry.  Returns (kernel ms, plain
-    ms, bound ms, bound_by)."""
+def check_k2(corners, classes, what, card):
+    """K2 against its plain version, packed, and against K1, which computes
+    the same S for any order: raises unless the bit rows are equal word for
+    word.  Returns (kernel ms, device ms, plain ms, bound ms, bound_by)."""
     from dafne_torch.ops.kernels import quad_nms as K
 
     b, n = classes.shape
-    s2 = K.suppression_matrix_2d_cuda(corners, classes, 0.1)
-    sp = K.suppression_matrix_plain(corners, classes, 0.1)
-    s1 = K.suppression_matrix(corners, classes, 0.1, class_major=True) if class_major else s2
+    bits2 = K.suppression_bits_2d_cuda(corners, classes, 0.1)
+    s_plain = K.suppression_matrix_plain(corners, classes, 0.1)
+    bits1 = K.suppression_bits_cuda(corners, classes, 0.1)
     torch.cuda.synchronize()
-    diff, diff_k1 = int((s2 != sp).sum()), int((s2 != s1).sum())
+    diff = int((bits2 != K.pack_suppression_bits(s_plain)).sum())
+    diff_k1 = int((bits2 != bits1).sum())
     if diff or diff_k1:
-        raise SystemExit(f"K2 disagrees on {what}: {diff} entries with its plain version, "
+        raise SystemExit(f"K2 disagrees on {what}: {diff} words with its packed plain version, "
                          f"{diff_k1} with K1")
-    tiles = int(K.tile_interactions(classes).sum())
-    n_tiles = n // K.TILE
-    (bound, by), pairs, no_fma, _ = suppression_bound(classes, n, s_bits=False)
-    ms = cuda_ms(lambda: K.suppression_matrix_2d_cuda(corners, classes, 0.1))
-    k1 = ""
-    if class_major:
-        k1 = f"K1_ms={cuda_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1)):.4f} "
+    nonzeros = int(s_plain.sum())
+    del s_plain
+    live = int(K.live_blocks(classes, K.TILE_2D, K.TILE_2D).sum())
+    n_tiles = n // K.TILE_2D
+    (bound, by), pairs, no_fma, layouts = suppression_bound(classes, n)
+    ms = cuda_ms(lambda: K.suppression_bits_2d_cuda(corners, classes, 0.1))
+    dev = device_ms(lambda: K.suppression_bits_2d_cuda(corners, classes, 0.1), K2_KERNEL)
+    k1_dev = device_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1), K1_KERNEL)
     plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(corners, classes, 0.1), reps=3, warmup=1)
-    log(f"[K2 {what}] B={b} N={n} nonzeros={int(s2.sum())} differing_entries=0 (plain"
-        f"{', and K1' if class_major else ''}) interacting_tiles={tiles} of "
-        f"{b * n_tiles * (n_tiles + 1) // 2} on or above the diagonal, visited_pairs="
-        f"{tiles * K.TILE * K.TILE} (pairs in interacting tiles) same-class pairs {pairs} "
-        f"kernel_ms={ms:.4f} {k1}plain_ms={plain_ms:.2f} bound_ms={bound:.4f} ({by}; "
-        f"{K.OPS_PER_PAIR} f32 ops per same-class pair) ops_bound_no_fma_ms={no_fma:.4f} [{card}]")
-    return ms, plain_ms, bound, by
+    log(f"[K2 {what}] B={b} N={n} nonzeros={nonzeros} differing_words=0 (packed plain, and K1) "
+        f"live_tiles={live} of {b * n_tiles * (n_tiles + 1) // 2} launched ({K.TILE_2D}^2 tiles "
+        f"on or above the diagonal), same-class pairs {pairs} (the pairs it computes) "
+        f"kernel_ms={ms:.4f} device_ms={fmt_ms(dev)} K1_device_ms={fmt_ms(k1_dev)} "
+        f"plain_ms={plain_ms:.2f} bound_ms={bound:.4f} ({by}; {K.OPS_PER_PAIR} f32 ops per "
+        f"same-class pair; S as bit rows, bytes bound {layouts['bits']:.5f}) "
+        f"ops_bound_no_fma_ms={no_fma:.4f} [{card}]")
+    return ms, dev, plain_ms, bound, by
 
 
 def match_rate(got, want):
@@ -793,8 +835,8 @@ def main() -> int:
         f"threads, host clock; the loader overlaps it with the step) h2d_ms={h2d_ms:.2f} "
         f"[{card}]")
     # K3's numbers for the kernel table, on this main-path batch's gts
-    k3_ms, k3_plain_ms, k3_bound, k3_by, err, _ = check_assign(spec, tables, dev_batch,
-                                                              "main-path batch", card)
+    k3_ms, k3_dev, k3_plain_ms, k3_bound, k3_by, err, _ = check_assign(
+        spec, tables, dev_batch, "main-path batch", card)
     max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
     del tmodel, optimizer, scheduler, out, targets, losses
     torch.cuda.empty_cache()
@@ -852,9 +894,9 @@ def main() -> int:
 
     # ---- 10. 2-D tiled suppression kernel (K2) vs plain ---------------------
     score_order = class_major_mix(rng, b, n, n, class_major=False)
-    for mix, (corners, classes), major in (("dense-15cls-score-order", score_order, False),
-                                           ("25pct-valid-class-major", quarter_mix, True)):
-        check_k2(corners, classes, mix, card, class_major=major)
+    for mix, (corners, classes) in (("dense-15cls-score-order", score_order),
+                                    ("25pct-valid-class-major", quarter_mix)):
+        check_k2(corners, classes, mix, card)
     del score_order, quarter_mix
 
     # ---- 11. the eval path at full width -----------------------------------
@@ -991,18 +1033,29 @@ def main() -> int:
                                             thr, gspec.class_merge, gspec.num_classes, GROUP_K,
                                             min_total, impl="pallas-2d") for c in cands]
     torch.cuda.synchronize()
-    k2_launches = K.suppression_matrix_2d_cuda.launches
+    k2_launches = K.suppression_bits_2d_cuda.launches
     keeps = [rotated_nms_grouped_batched(c["corners"], c["scores"], c["classes"], c["valid"],
                                          thr, gspec.class_merge, gspec.num_classes, GROUP_K,
                                          min_total, impl="pallas") for c in cands]
     differ = sum(int((k2 != k1).sum()) for k2, k1 in zip(keeps_2d, keeps))
+    # K2 hands its bit rows to the greedy kernel as K1 does: no int8 S, no
+    # fill and no pack, so beside K2 for K1 the two impls run the same kernels
+    per_impl = {impl: device_kernels(lambda: rotated_nms_grouped_batched(
+        c0["corners"], c0["scores"], c0["classes"], c0["valid"], thr, gspec.class_merge,
+        gspec.num_classes, GROUP_K, min_total, impl=impl)) for impl in ("pallas", "pallas-2d")}
+    extra = {k: n - per_impl["pallas"][k] for k, n in per_impl["pallas-2d"].items()
+             if K2_KERNEL not in k and n > per_impl["pallas"][k]}
     log(f"[eval] replay of the grouped NMS of {len(cands)} batches with impl=pallas-2d: K2 launches "
         f"{k2_launches}; keep-sets differing from impl=pallas: {differ} of "
-        f"{sum(int(k.sum()) for k in keeps)} kept")
+        f"{sum(int(k.sum()) for k in keeps)} kept; kernels per grouped NMS call (profiler): "
+        f"pallas {sum(per_impl['pallas'].values())}, pallas-2d "
+        f"{sum(per_impl['pallas-2d'].values())}, beside K2 none more than pallas's: {not extra}")
     if differ or k2_launches != len(cands):
         raise SystemExit("K2's grouped keep-sets disagree with K1's, or K2 did not launch")
-    k2_ms, k2_plain_ms, k2_bound, k2_by = check_k2(gpc, gpk, "grouped eval batch [B*G, K]", card,
-                                                   class_major=True)
+    if extra:
+        raise SystemExit(f"impl=pallas-2d runs kernels that impl=pallas does not: {extra}")
+    k2_ms, k2_dev, k2_plain_ms, k2_bound, k2_by = check_k2(gpc, gpk, "grouped eval batch [B*G, K]",
+                                                           card)
     del emodel, head0, cands, keeps_2d, keeps
     torch.cuda.empty_cache()
 
@@ -1059,21 +1112,21 @@ def main() -> int:
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
          "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"],
-         "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"],
-         "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "plain_ms": g_plain_ms,
-         "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
+         "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
+         "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35", "launches": train_launches,
-         "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+         "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:128", "launches": k2_launches,
-         "max_abs_err": max_err["suppression_matrix_2d"], "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "max_abs_err": max_err["suppression_matrix_2d"], "ms": k2_ms, "device_ms": k2_dev,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,14 @@
 // Rotated-quad NMS kernels for Hopper (sm_90a): the suppression matrix (a
-// strip kernel for class-major input, a 2-D tiled one for any score order)
-// and the exact greedy keep-set.  Built by dafne_torch/ops/kernels/build.py with
-// nvcc into a shared library with a plain C interface, loaded with ctypes.
+// strip kernel, fast on class-major input, and a 2-D tiled one, fast on any
+// score order) and the exact greedy keep-set.  Built by
+// dafne_torch/ops/kernels/build.py with nvcc into a shared library with a
+// plain C interface, loaded with ctypes.
 //
-// S leaves the strip kernel as bit rows: bits[b, i, w] is a 32-bit word
-// whose bit k is S[b, i, 32 w + k], so S of [8, 4096] takes 16.8 MB and
+// S leaves both suppression kernels as bit rows: bits[b, i, w] is a 32-bit
+// word whose bit k is S[b, i, 32 w + k], so S of [8, 4096] takes 16.8 MB and
 // not 134 MB of int8, and the greedy walk reads 8x fewer bytes.
 //
-// 1. dafne_suppression_bits replaces the Pallas strip kernel
+// 1. dafne_suppression_bits (K1) replaces the Pallas strip kernel
 //    dafne_tpu/ops/pallas/quad_nms.py:_suppress_strip_kernel (reached through
 //    suppression_matrix(..., class_major=True)).
 //    S[b, i, j] = 1 iff j > i, classes[b, i] == classes[b, j] >= 0 and the
@@ -16,38 +17,46 @@
 //    operations (OPS_PER_PAIR) and, as compiled, more instructions than
 //    that (each of its 32 IEEE divisions is a reciprocal and a correction
 //    sequence), against 1/8 byte of S: the FP32 pipes, not memory, set
-//    the pace, and no tensor-core path exists for this math.  The design:
-//    a block is one (64-row strip, 128-column block) pair.  It loads the
-//    192 classes and lists, in shared memory, the slots (r, c) of the block
-//    that can be nonzero: j > i and equal classes >= 0 (a block-wide scan of
-//    each thread's count).  A block with none writes its 256 zero words and
-//    exits, so the caller allocates S uninitialised and no wrapper-side
-//    span computation runs.  A live block stages corners and areas in
-//    shared memory, and its 256 threads take the listed pairs in turn:
-//    every lane of a warp computes a pair that can suppress, however the
-//    classes and the diagonal cut the block (a warp per row and 32 columns
-//    would leave the lanes outside the row's class run or below the
-//    diagonal idle while the warp pays for the rest).  A
-//    verdict is one atomicOr into the block's 256 words in shared memory,
-//    stored once at the end.  The op order is that of the plain PyTorch
-//    version and the file is compiled with -fmad=false, so the bits are
-//    equal to the packed plain S.
+//    the pace, and no tensor-core path exists for this math.  The design
+//    (suppression_block, shared with 2): a block is one (64-row strip,
+//    128-column block) pair.  It loads the 192 classes and lists, in shared
+//    memory, the slots (r, c) of the block that can be nonzero: j > i and
+//    equal classes >= 0 (a block-wide scan of each thread's count).  A
+//    block with none writes its zero words and exits, so the caller
+//    allocates S uninitialised and no wrapper-side span computation runs.
+//    A live block stages corners and areas in shared memory, and its
+//    threads take the listed pairs in turn: every lane of a warp computes a
+//    pair that can suppress, however the classes and the diagonal cut the
+//    block (a warp per row and 32 columns would leave the lanes outside the
+//    row's class run or below the diagonal idle while the warp pays for the
+//    rest).  A verdict is one atomicOr into the block's words in shared
+//    memory, stored once at the end.  The op order is that of the plain
+//    PyTorch version and the file is compiled with -fmad=false, so the bits
+//    are equal to the packed plain S.  The dead-block test is exact, so K1
+//    computes S for any order; class-major order only makes most blocks
+//    dead or dense.
 //
-// 2. dafne_suppression_matrix_2d replaces the Pallas 2-D tiled kernel
+// 2. dafne_suppression_bits_2d (K2) replaces the Pallas 2-D tiled kernel
 //    dafne_tpu/ops/pallas/quad_nms.py:_suppress_kernel (reached through
 //    suppression_matrix(..., class_major=False), impl="pallas-2d"): the same
-//    S over a grid of 128 x 128 tiles, for candidates in any order that is
-//    score-descending within a class.  What bounds it: the f32 IoU work of
-//    the pairs it visits, as for 1.  A tile below the diagonal returns before
-//    it loads anything; a tile whose row and column class sets do not
-//    intersect (classes >= 0 only: the port pads rows and columns alike with
-//    -1) returns after loading 2 x 128 classes; an interacting tile runs the
-//    pair test of 1 on every pair, and the IoU on the same-class pairs j > i
-//    (pair_suppresses, shared with 1, so S is bit-equal to the plain version
-//    too).  So the IoU work equals 1's, and what the score order costs is the
-//    warps whose 32 columns hold a same-class pair for some lanes only (a
-//    warp pays for its slowest lane).  It writes int8 S; the zeros are the
-//    wrapper's.
+//    S as bit rows, for candidates in any order that is score-descending
+//    within a class.  What bounds it: the f32 IoU work of the same-class
+//    pairs j > i, as for 1.  In score order with many classes every tile
+//    on or above the diagonal is live at low density (1/15 of its slots
+//    with 15 classes), where the first design (one 128 x 128 tile per
+//    block, a thread per column, int8 out) paid a full IoU for every warp
+//    that held one same-class lane: 0.89 of the warps on the dense mix, and
+//    a zero fill and a pack of the int8 S around it.  The design runs 1's
+//    block body (suppression_block) over square kTile2 x kTile2 tiles: the
+//    active pairs listed so every lane computes one, one atomicOr per
+//    suppressing pair, every word written.  The grid holds only the tiles
+//    on or above the diagonal (a linear index, row by row), and each such
+//    tile writes the zero words of its mirror below the diagonal, so no
+//    block is spent on a tile that holds only j < i and S needs no fill.
+//    The tile's shape was chosen by measurement (PERF.md): 64 x 64 (128
+//    threads) ties 128 x 128 on the dense score-ordered mix and beats it by
+//    a tenth on the grouped eval input, where a 512-wide problem has only
+//    10 tiles of 128; 32 x 32 and a full 2-D grid of 128 x 128 were slower.
 //
 // 3. dafne_greedy_keep_bits replaces greedy_scan + _jacobi_fixed_point of
 //    the same file (XLA, not Pallas): the exact greedy keep-set over the
@@ -75,9 +84,9 @@
 
 namespace {
 
-constexpr int kStrip = 64;    // rows per strip (as the Pallas kernel)
-constexpr int kTile = 128;    // columns per block
-constexpr int kThreads = 256;
+constexpr int kStrip = 64;    // K1: rows per block, a strip (as the Pallas kernel)
+constexpr int kTile = 128;    // K1: columns per block
+constexpr int kTile2 = 64;    // K2: rows and columns per block, a square tile
 
 // Contribution of edge a->b clipped to quad q (CCW).  Same op order as
 // dafne_torch/ops/kernels/quad_nms.py:_edge_integral_plain.
@@ -167,54 +176,70 @@ __device__ __forceinline__ void stage_quad(const float* cor, int src, float (*x)
   area[t] = shoelace4(qx, qy);
 }
 
-constexpr int kWordsPerBlock = kTile / 32;  // words of a row in one block
-constexpr int kSlotsPerThread = kStrip * kTile / kThreads;  // 32 (row, column) slots
-static_assert(kStrip * kWordsPerBlock == kThreads, "one word of the block per thread");
-static_assert(kSlotsPerThread == 32, "a thread's slots fit one mask word");
+// A kRows x kCols block of S takes kRows * kCols / 32 threads: 32 (row,
+// column) slots each, so a thread's active slots fit one mask word, and one
+// word of the block's bit rows each.
+template <int kRows, int kCols>
+struct BlockShape {
+  static_assert(kRows % 32 == 0 && kCols % 32 == 0, "rows and columns in whole words");
+  static_assert(kRows * kCols <= 65536, "a slot index fits 16 bits");
+  static constexpr int kThreads = kRows * kCols / 32;
+  static constexpr int kWords = kCols / 32;  // words of a row in the block
+};
 
-// grid (N / kTile, N / kStrip, B), block kThreads.
-// corners [B, N, 8] f32 CCW; classes [B, N] i32 (< 0: invalid or padding);
-// out [B, N, N / 32] u32 bit rows, every word written (no fill needed).
-__global__ void __launch_bounds__(kThreads) suppression_bits_kernel(
+// This thread's word of the kRows x kCols block at rows r0.., columns c0..
+// of one problem's bit rows `out_b` (W words a row).
+template <int kRows, int kCols>
+__device__ __forceinline__ uint32_t* block_word(uint32_t* out_b, int words, int r0, int c0) {
+  constexpr int kWords = BlockShape<kRows, kCols>::kWords;
+  return out_b + (size_t)(r0 + threadIdx.x / kWords) * words + c0 / 32 + threadIdx.x % kWords;
+}
+
+// The block body of K1 and K2: the kRows x kCols block of S at rows r0..,
+// columns c0.. of problem b, every word written.  corners [B, N, 8] f32 CCW;
+// classes [B, N] i32 (< 0: invalid or padding); out [B, N, N / 32] u32 bit
+// rows.  The block lists its active slots (j > i, equal classes >= 0) in
+// shared memory; a block with none writes zero words and loads no corner.
+template <int kRows, int kCols>
+__device__ __forceinline__ void suppression_block(
     const float* __restrict__ corners, const int* __restrict__ classes,
-    uint32_t* __restrict__ out, int n, float iou_threshold, float eps) {
-  const int cb = blockIdx.x;
-  const int strip = blockIdx.y;
-  const int b = blockIdx.z;
-
-  __shared__ float rx[4][kStrip], ry[4][kStrip], ra[kStrip];
-  __shared__ float cx[4][kTile], cy[4][kTile], ca[kTile];
-  __shared__ int rc[kStrip], cc[kTile];
+    uint32_t* __restrict__ out, int n, float iou_threshold, float eps, int r0, int c0, int b) {
+  constexpr int kThreads = BlockShape<kRows, kCols>::kThreads;
+  constexpr int kWords = BlockShape<kRows, kCols>::kWords;
+  constexpr int kRowStep = kThreads / kCols;  // kRows / 32
+  __shared__ float rx[4][kRows], ry[4][kRows], ra[kRows];
+  __shared__ float cx[4][kCols], cy[4][kCols], ca[kCols];
+  __shared__ int rc[kRows], cc[kCols];
   __shared__ int warp_total[kThreads / 32];
-  __shared__ uint16_t pairs[kStrip * kTile];  // row * kTile + column of each active pair
-  __shared__ uint32_t bits[kStrip][kWordsPerBlock];
+  __shared__ uint16_t pairs[kRows * kCols];  // row * kCols + column of each active pair
+  __shared__ uint32_t bits[kRows][kWords];
 
-  const int r0 = strip * kStrip;
-  const int c0 = cb * kTile;
   const int words = n / 32;
   const int* cls = classes + (size_t)b * n;
   uint32_t* out_b = out + (size_t)b * n * words;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (tid < kStrip) {
-    rc[tid] = cls[r0 + tid];
-  } else if (tid < kStrip + kTile) {
-    cc[tid - kStrip] = cls[c0 + tid - kStrip];
+  for (int t = tid; t < kRows + kCols; t += kThreads) {
+    if (t < kRows) {
+      rc[t] = cls[r0 + t];
+    } else {
+      cc[t - kRows] = cls[c0 + t - kRows];
+    }
   }
-  bits[tid / kWordsPerBlock][tid % kWordsPerBlock] = 0u;
+  bits[tid / kWords][tid % kWords] = 0u;
   __syncthreads();
 
   // A slot (r, c) is active iff j > i and the classes are equal and >= 0.
-  // Thread tid owns column c = tid % kTile and rows tid / kTile + 2 k.
-  const int c = tid % kTile;
+  // Thread tid owns column c = tid % kCols and rows tid / kCols + kRowStep k.
+  const int c = tid % kCols;
   const int j = c0 + c;
   const int qc = cc[c];
   uint32_t mine = 0;
   if (qc >= 0) {
 #pragma unroll
-    for (int k = 0; k < kSlotsPerThread; ++k) {
-      const int r = tid / kTile + 2 * k;
+    for (int k = 0; k < 32; ++k) {
+      const int r = tid / kCols + kRowStep * k;
       if (j > r0 + r && rc[r] == qc) mine |= 1u << k;
     }
   }
@@ -239,26 +264,28 @@ __global__ void __launch_bounds__(kThreads) suppression_bits_kernel(
   // no active pair: the block is dead (live_blocks in
   // ops/kernels/quad_nms.py is the plain form) and its words are zero
   if (total == 0) {
-    out_b[(size_t)(r0 + tid / kWordsPerBlock) * words + c0 / 32 + tid % kWordsPerBlock] = 0u;
+    *block_word<kRows, kCols>(out_b, words, r0, c0) = 0u;
     return;
   }
   for (uint32_t m = mine; m; m &= m - 1) {
-    const int r = tid / kTile + 2 * (__ffs(m) - 1);
-    pairs[offset++] = static_cast<uint16_t>(r * kTile + c);
+    const int r = tid / kCols + kRowStep * (__ffs(m) - 1);
+    pairs[offset++] = static_cast<uint16_t>(r * kCols + c);
   }
   const float* cor = corners + (size_t)b * n * 8;
-  if (tid < kStrip) {
-    stage_quad(cor, r0 + tid, rx, ry, ra, tid);
-  } else if (tid < kStrip + kTile) {
-    stage_quad(cor, c0 + tid - kStrip, cx, cy, ca, tid - kStrip);
+  for (int t = tid; t < kRows + kCols; t += kThreads) {
+    if (t < kRows) {
+      stage_quad(cor, r0 + t, rx, ry, ra, t);
+    } else {
+      stage_quad(cor, c0 + t - kRows, cx, cy, ca, t - kRows);
+    }
   }
   __syncthreads();
 
   // every lane takes an active pair: no lane idles on a pair that cannot
   // suppress, whatever the mix of classes and the diagonal leave in a warp
   for (int p = tid; p < total; p += kThreads) {
-    const int r = pairs[p] / kTile;
-    const int q = pairs[p] % kTile;
+    const int r = pairs[p] / kCols;
+    const int q = pairs[p] % kCols;
     const float px[4] = {rx[0][r], rx[1][r], rx[2][r], rx[3][r]};
     const float py[4] = {ry[0][r], ry[1][r], ry[2][r], ry[3][r]};
     const float qx[4] = {cx[0][q], cx[1][q], cx[2][q], cx[3][q]};
@@ -268,68 +295,43 @@ __global__ void __launch_bounds__(kThreads) suppression_bits_kernel(
     }
   }
   __syncthreads();
-  out_b[(size_t)(r0 + tid / kWordsPerBlock) * words + c0 / 32 + tid % kWordsPerBlock] =
-      bits[tid / kWordsPerBlock][tid % kWordsPerBlock];
+  *block_word<kRows, kCols>(out_b, words, r0, c0) = bits[tid / kWords][tid % kWords];
 }
 
-// grid (N / kTile column tiles, N / kTile row tiles, B), block kThreads.
-// corners [B, N, 8] f32 CCW; classes [B, N] i32 (< 0: invalid or padding);
-// out [B, N, N] int8, zero-filled by the caller.
-__global__ void __launch_bounds__(kThreads) suppression_2d_kernel(
+using K1Block = BlockShape<kStrip, kTile>;
+using K2Block = BlockShape<kTile2, kTile2>;
+
+// K1: grid (N / kTile, N / kStrip, B), block K1Block::kThreads; every block
+// of S, in rows of strips.
+__global__ void __launch_bounds__(K1Block::kThreads) suppression_bits_kernel(
     const float* __restrict__ corners, const int* __restrict__ classes,
-    int8_t* __restrict__ out, int n, float iou_threshold, float eps) {
-  const int ct = blockIdx.x;
-  const int rt = blockIdx.y;
-  const int b = blockIdx.z;
-  if (ct < rt) return;  // below the diagonal only j < i: S is zero
+    uint32_t* __restrict__ out, int n, float iou_threshold, float eps) {
+  suppression_block<kStrip, kTile>(corners, classes, out, n, iou_threshold, eps,
+                                   blockIdx.y * kStrip, blockIdx.x * kTile, blockIdx.z);
+}
 
-  __shared__ float rx[4][kTile], ry[4][kTile], ra[kTile];
-  __shared__ float cx[4][kTile], cy[4][kTile], ca[kTile];
-  __shared__ int rc[kTile], cc[kTile];
-
-  const int r0 = rt * kTile;
-  const int c0 = ct * kTile;
-  const int* cls = classes + (size_t)b * n;
-  const int tid = threadIdx.x;
-  if (tid < kTile) {
-    rc[tid] = cls[r0 + tid];
-  } else {
-    cc[tid - kTile] = cls[c0 + tid - kTile];
+// K2: grid (T (T + 1) / 2 with T = N / kTile2, B), block K2Block::kThreads.
+// blockIdx.x runs row by row over the tiles (rt, ct) on or above the
+// diagonal, ct >= rt; a tile with ct > rt also writes the zero words of its
+// mirror (ct, rt), which holds only j < i.  So every word of S is written
+// and the tiles below the diagonal cost no block.
+__global__ void __launch_bounds__(K2Block::kThreads) suppression_bits_2d_kernel(
+    const float* __restrict__ corners, const int* __restrict__ classes,
+    uint32_t* __restrict__ out, int n, float iou_threshold, float eps) {
+  const int tiles = n / kTile2;
+  int rt = 0;
+  int rest = blockIdx.x;
+  while (rest >= tiles - rt) {  // row rt holds tiles - rt tiles
+    rest -= tiles - rt;
+    ++rt;
   }
-  __syncthreads();
-
-  // the tile interacts iff some valid row class equals some column class
-  const int c = tid % kTile;
-  const int qc = cc[c];
-  bool hit = false;
-  if (qc >= 0) {
-    for (int r = tid / kTile; r < kTile; r += kThreads / kTile) hit = hit || rc[r] == qc;
+  const int ct = rt + rest;
+  if (ct > rt) {
+    *block_word<kTile2, kTile2>(out + (size_t)blockIdx.y * n * (n / 32), n / 32, ct * kTile2,
+                                rt * kTile2) = 0u;
   }
-  if (!__syncthreads_or(hit)) return;
-
-  const float* cor = corners + (size_t)b * n * 8;
-  if (tid < kTile) {
-    stage_quad(cor, r0 + tid, rx, ry, ra, tid);
-  } else {
-    stage_quad(cor, c0 + tid - kTile, cx, cy, ca, tid - kTile);
-  }
-  __syncthreads();
-
-  const float qx[4] = {cx[0][c], cx[1][c], cx[2][c], cx[3][c]};
-  const float qy[4] = {cy[0][c], cy[1][c], cy[2][c], cy[3][c]};
-  const float qa = ca[c];
-  int8_t* out_b = out + (size_t)b * n * n;
-  for (int r = tid / kTile; r < kTile; r += kThreads / kTile) {
-    const int i = r0 + r;
-    const int j = c0 + c;
-    if (j > i && qc >= 0 && rc[r] == qc) {
-      const float px[4] = {rx[0][r], rx[1][r], rx[2][r], rx[3][r]};
-      const float py[4] = {ry[0][r], ry[1][r], ry[2][r], ry[3][r]};
-      if (pair_suppresses(px, py, ra[r], qx, qy, qa, iou_threshold, eps)) {
-        out_b[(size_t)i * n + j] = 1;
-      }
-    }
-  }
+  suppression_block<kTile2, kTile2>(corners, classes, out, n, iou_threshold, eps, rt * kTile2,
+                                    ct * kTile2, blockIdx.y);
 }
 
 constexpr int kGreedyThreads = 256;
@@ -483,16 +485,17 @@ extern "C" int dafne_suppression_bits(
     const float* corners, const int* classes, uint32_t* out, int batch, int n,
     float iou_threshold, float eps, void* stream) {
   const dim3 grid(n / kTile, n / kStrip, batch);
-  suppression_bits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  suppression_bits_kernel<<<grid, K1Block::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       corners, classes, out, n, iou_threshold, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dafne_suppression_matrix_2d(
-    const float* corners, const int* classes, int8_t* out, int batch, int n,
+extern "C" int dafne_suppression_bits_2d(
+    const float* corners, const int* classes, uint32_t* out, int batch, int n,
     float iou_threshold, float eps, void* stream) {
-  const dim3 grid(n / kTile, n / kTile, batch);
-  suppression_2d_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int tiles = n / kTile2;
+  const dim3 grid(tiles * (tiles + 1) / 2, batch);
+  suppression_bits_2d_kernel<<<grid, K2Block::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       corners, classes, out, n, iou_threshold, eps);
   return static_cast<int>(cudaGetLastError());
 }

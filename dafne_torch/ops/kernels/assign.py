@@ -13,6 +13,15 @@ reached through ``assign_argmin``), batched over images.  As in
     plain version for CPU tensors.  A CUDA tensor launches the kernel or
     raises.
 
+The kernel assigns each block of ``BLOCK`` consecutive locations over the
+gts its block lists: under the flags where a pair needs ``in_center`` to
+win (``culls``), only those whose clipped center box meets the block's
+box and, with the level filter, whose hbox reaches the block's lowest
+size range.  ``gt_lists`` is the plain form of that cull, ``assign_argmin_listed``
+the plain form of assigning over the lists (equal to
+``assign_argmin_plain``, since the cull drops only pairs whose value is
+INF) and ``pair_counts`` the pairs each form evaluates.
+
 The point-in-quad test sums the four triangle areas in the Pallas kernel's
 order, which is not ``geometry.quads.is_in_quadrilateral``'s.  The two
 orders round differently, so on a few exactly-boundary locations (under
@@ -33,8 +42,9 @@ from dafne_torch.ops.kernels.build import check_cuda, load
 INF = 100000000.0
 EPS = 1e-3  # the in-quad tolerance of the reference (dafne_outputs.py:109-119)
 GT_CHUNK = 32  # gts per step of the plain version: memory is [B, K, GT_CHUNK]
+BLOCK = 128  # consecutive locations per block of the kernel (kThreads in assign.cu)
 
-#: f32 operations that one valid (location, gt) pair needs with the recipe's
+#: f32 operations that one (location, valid gt) pair needs with the recipe's
 #: flags (center sampling combined with point-in-quad, in-box check, level
 #: filter), each add, sub, mul, min/max and compare counted as 1 and abs as
 #: a free source modifier.  Not counted: terms of one gt or one location
@@ -61,6 +71,16 @@ def _center_sample_mask(x, y, st, hb, radius: float):
     xmax = torch.minimum(cx + rad, hb[..., 2])
     ymax = torch.minimum(cy + rad, hb[..., 3])
     return torch.minimum(torch.minimum(x - xmin, xmax - x), torch.minimum(y - ymin, ymax - y)) > 0
+
+
+def _in_center(x, y, st, hb, spec):
+    """[B, K, C] bool: center sampling, or strictly inside the hbox without
+    it.  x, y, st [1, K, 1]; hb [B, 1, C, 4]."""
+    if spec.center_sample:
+        return _center_sample_mask(x, y, st, hb, spec.pos_radius)
+    l, t = x - hb[..., 0], y - hb[..., 1]
+    r, bt = hb[..., 2] - x, hb[..., 3] - y
+    return torch.minimum(torch.minimum(l, r), torch.minimum(t, bt)) > 0
 
 
 def assign_argmin_plain(locations, loc_strides, size_ranges, gt_corners, gt_hbox,
@@ -92,10 +112,7 @@ def assign_argmin_plain(locations, loc_strides, size_ranges, gt_corners, gt_hbox
         r = hb[..., 2] - x
         bt = hb[..., 3] - y
         max_ltrb = torch.maximum(torch.maximum(l, r), torch.maximum(t, bt))
-        if spec.center_sample:
-            in_center = _center_sample_mask(x, y, st, hb, spec.pos_radius)
-        else:
-            in_center = torch.minimum(torch.minimum(l, r), torch.minimum(t, bt)) > 0
+        in_center = _in_center(x, y, st, hb, spec)
         if spec.center_sample_only:
             is_in = in_center
         else:
@@ -121,6 +138,103 @@ def assign_argmin_plain(locations, loc_strides, size_ranges, gt_corners, gt_hbox
         best = torch.where(update, c_min, best)
         best_idx = torch.where(update, c_arg, best_idx)
     return best, best_idx
+
+
+def culls(spec) -> bool:
+    """Whether the kernel culls gts per block under `spec`'s flags: only
+    where a pair's value is INF unless in_center holds (the in-box check on,
+    with CENTER_SAMPLE_ONLY or COMBINE_CENTER_SAMPLE)."""
+    return spec.enable_in_box_check and (spec.center_sample_only or spec.combine_center_sample)
+
+
+def gt_lists(locations, loc_strides, size_ranges, gt_hbox, gt_valid, spec,
+             block: int = BLOCK):
+    """[B, ceil(K / block), M] bool: the gts that each block of `block`
+    consecutive locations lists, the kernel's cull in plain PyTorch.
+
+    A gt is listed when it is valid and, where ``culls(spec)``, its hbox
+    clipped to its center +- the block's largest stride x radius (the
+    center-sampling box, formed with the same f32 expressions; the hbox
+    itself without center sampling) meets the bounding box of the block's
+    locations strictly and, with the level filter on, the hbox's larger
+    side is not below the block's lowest size range (inside the hbox a
+    location's max-ltrb is at most that side).  Elsewhere every valid gt is
+    listed."""
+    b, m = gt_valid.shape
+    k = locations.shape[0]
+    nb = -(-k // block)
+    inf = float("inf")
+
+    def per_block(v, fill, reduce):  # [K] -> [1, nb, 1], the tail padded with `fill`
+        v = torch.nn.functional.pad(v, (0, nb * block - k), value=fill).view(nb, block)
+        return reduce(v, 1)[None, :, None]
+
+    x, y = locations[:, 0], locations[:, 1]
+    x_lo, x_hi = per_block(x, inf, torch.amin), per_block(x, -inf, torch.amax)
+    y_lo, y_hi = per_block(y, inf, torch.amin), per_block(y, -inf, torch.amax)
+    lists = gt_valid[:, None, :].expand(b, nb, m)
+    if not culls(spec):
+        return lists.clone()
+    hb = gt_hbox[:, None, :, :]  # [B, 1, M, 4]
+    xmin, ymin, xmax, ymax = hb.unbind(-1)
+    if spec.center_sample:
+        rad_hi = per_block(loc_strides * spec.pos_radius, -inf, torch.amax)
+        cx = 0.5 * (xmin + xmax)
+        cy = 0.5 * (ymin + ymax)
+        xmin, ymin = torch.maximum(cx - rad_hi, xmin), torch.maximum(cy - rad_hi, ymin)
+        xmax, ymax = torch.minimum(cx + rad_hi, xmax), torch.minimum(cy + rad_hi, ymax)
+    misses = (xmin >= x_hi) | (xmax <= x_lo) | (ymin >= y_hi) | (ymax <= y_lo)
+    if spec.enable_level_size_filtering:
+        lo_min = per_block(size_ranges[:, 0], inf, torch.amin)
+        extent = torch.maximum(hb[..., 2] - hb[..., 0], hb[..., 3] - hb[..., 1])
+        misses = misses | (extent < lo_min)
+    return lists & ~misses
+
+
+def assign_argmin_listed(locations, loc_strides, size_ranges, gt_corners, gt_hbox, gt_area,
+                         gt_valid, spec, block: int = BLOCK):
+    """The kernel's design in plain PyTorch: each block of `block`
+    locations assigns over the gts of its list (``gt_lists``) alone, in
+    ascending index.  Shapes and result as assign_argmin_plain, to which it
+    is equal: an unlisted gt's value is INF at every location of its block."""
+    lists = gt_lists(locations, loc_strides, size_ranges, gt_hbox, gt_valid, spec, block)
+    outs = [assign_argmin_plain(locations[k0:k0 + block], loc_strides[k0:k0 + block],
+                                size_ranges[k0:k0 + block], gt_corners, gt_hbox, gt_area,
+                                lists[:, i], spec)
+            for i, k0 in enumerate(range(0, locations.shape[0], block))]
+    return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
+
+
+def pair_counts(locations, loc_strides, size_ranges, gt_hbox, gt_valid, spec,
+                block: int = BLOCK):
+    """{"valid", "listed", "candidate"}: the (location, valid gt) pairs of
+    the batch; those the kernel runs its pair body on, each block's live
+    locations times its listed gts; and, where ``culls(spec)``, those whose
+    location passes in_center at its own stride and, with the level filter
+    on, whose max-ltrb lies in the location's size range: the pairs whose
+    value can be finite, of which only the point-in-quad test remains to
+    decide (every valid pair elsewhere)."""
+    m = gt_valid.shape[1]
+    k = locations.shape[0]
+    lists = gt_lists(locations, loc_strides, size_ranges, gt_hbox, gt_valid, spec, block)
+    live = torch.full((lists.shape[1],), block, dtype=torch.int64, device=locations.device)
+    live[-1] = k - (lists.shape[1] - 1) * block
+    counts = {"valid": k * int(gt_valid.sum()), "listed": int((lists.sum(2) * live).sum())}
+    if not culls(spec):
+        return {**counts, "candidate": counts["valid"]}
+    x, y = locations[None, :, 0, None], locations[None, :, 1, None]
+    st = loc_strides[None, :, None]
+    lo, hi = size_ranges[None, :, 0, None], size_ranges[None, :, 1, None]
+    candidate = 0
+    for c0 in range(0, m, GT_CHUNK):
+        hb = gt_hbox[:, None, c0:c0 + GT_CHUNK, :]
+        finite = _in_center(x, y, st, hb, spec) & gt_valid[:, None, c0:c0 + GT_CHUNK]
+        if spec.enable_level_size_filtering:
+            max_ltrb = torch.maximum(torch.maximum(x - hb[..., 0], hb[..., 2] - x),
+                                     torch.maximum(y - hb[..., 1], hb[..., 3] - y))
+            finite = finite & (max_ltrb >= lo) & (max_ltrb <= hi)
+        candidate += int(finite.sum())
+    return {**counts, "candidate": candidate}
 
 
 def _lib():

@@ -3,9 +3,9 @@
 Counterpart of ``dafne_tpu/ops/pallas/quad_nms.py``.  The suppression matrix
 has two kernels, as there: the strip kernel for class-major candidates (K1,
 ``class_major=True``) and the 2-D tiled kernel for any score order (K2).
-K1 writes S as bit rows (``pack_suppression_bits``: [B, N, N / 32] int32
+Both write S as bit rows (``pack_suppression_bits``: [B, N, N / 32] int32
 words, bit k of word w in row i is S[i, 32 w + k]), and the greedy kernel
-walks those; K2 writes int8 S, which NMS packs.  Each function has
+walks those.  Each function has
   - a CUDA kernel (``dafne_torch/csrc/quad_nms.cu``) behind a wrapper that
     checks its inputs, launches on the current stream, raises on a launch
     error and counts its launches (``<wrapper>.launches``);
@@ -24,8 +24,9 @@ import torch
 
 from dafne_torch.ops.kernels.build import check_cuda, load
 
-TILE = 128  # column block of the suppression kernel; NMS pads N to a multiple
-STRIP = 64  # rows per strip
+TILE = 128  # column block of K1; NMS pads N to a multiple
+STRIP = 64  # rows per strip of K1
+TILE_2D = 64  # rows and columns of K2's square tiles (kTile2 in quad_nms.cu)
 
 #: f32 operations that the IoU of one pair needs (add, sub, mul, div,
 #: min/max and compares, each counted as 1).  Not counted: terms of one quad
@@ -151,37 +152,21 @@ def unpack_suppression_bits(bits: torch.Tensor) -> torch.Tensor:
     return s.view(torch.int8).reshape(b, n, w * 32)
 
 
-def live_blocks(classes: torch.Tensor) -> torch.Tensor:
-    """[B, N / STRIP, N / TILE] bool: the (strip, column block) blocks of S
-    that the strip kernel computes, those holding a pair j > i whose
-    classes are equal and >= 0.  Every other block of S is zero, and the
-    kernel writes its words as zeros without loading a corner."""
+def live_blocks(classes: torch.Tensor, rows: int = STRIP, cols: int = TILE) -> torch.Tensor:
+    """[B, N / rows, N / cols] bool: the (rows x cols) blocks of S that the
+    suppression kernels compute, those holding a pair j > i whose classes
+    are equal and >= 0 (K1's blocks by default; K2's with rows = cols =
+    TILE_2D).  Every other block of S is zero, and the kernels write its
+    words as zeros without loading a corner."""
     b, n = classes.shape
     col = torch.arange(n, device=classes.device)
-    out = torch.empty((b, n // STRIP, n // TILE), dtype=torch.bool, device=classes.device)
-    for s in range(n // STRIP):
-        rc = classes[:, s * STRIP : (s + 1) * STRIP, None]  # [B, R, 1]
-        later = col[None, None, :] > col[s * STRIP : (s + 1) * STRIP, None]
+    out = torch.empty((b, n // rows, n // cols), dtype=torch.bool, device=classes.device)
+    for s in range(n // rows):
+        rc = classes[:, s * rows : (s + 1) * rows, None]  # [B, R, 1]
+        later = col[None, None, :] > col[s * rows : (s + 1) * rows, None]
         pair = (rc == classes[:, None, :]) & (rc >= 0) & later  # [B, R, N]
-        out[:, s] = pair.view(b, STRIP, n // TILE, TILE).any(-1).any(1)
+        out[:, s] = pair.view(b, rows, n // cols, cols).any(-1).any(1)
     return out
-
-
-def tile_interactions(classes: torch.Tensor) -> torch.Tensor:
-    """[B, N / TILE, N / TILE] bool: the TILE x TILE tiles of S that the 2-D
-    kernel computes, those on or above the diagonal whose row and column
-    tiles share a valid class (>= 0); every other tile of S is zero.  The
-    Pallas 2-D kernel's interaction test, `(j >= i) & any(rcls == ccls)`."""
-    b, n = classes.shape
-    t = n // TILE
-    c = classes.reshape(b, t, TILE).long()
-    n_cls = int(c.max()) + 1 if bool((c >= 0).any()) else 1
-    present = torch.zeros((b, t, n_cls + 1), dtype=torch.float32, device=classes.device)
-    present.scatter_(2, torch.where(c >= 0, c, n_cls), 1.0)
-    present = present[..., :n_cls]
-    shared = torch.bmm(present, present.transpose(1, 2)) > 0
-    tiles = torch.arange(t, device=classes.device)
-    return shared & (tiles[None, None, :] >= tiles[None, :, None])
 
 
 def _lib():
@@ -190,8 +175,8 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dafne_suppression_bits.argtypes = [p, p, p, i, i, f, f, p]
         lib.dafne_suppression_bits.restype = i
-        lib.dafne_suppression_matrix_2d.argtypes = [p, p, p, i, i, f, f, p]
-        lib.dafne_suppression_matrix_2d.restype = i
+        lib.dafne_suppression_bits_2d.argtypes = [p, p, p, i, i, f, f, p]
+        lib.dafne_suppression_bits_2d.restype = i
         lib.dafne_greedy_keep_bits.argtypes = [p, p, p, i, i, p]
         lib.dafne_greedy_keep_bits.restype = i
         lib._dafne_typed = True
@@ -214,21 +199,27 @@ def _check_suppression_inputs(what, corners, classes):
     return b, n
 
 
-def suppression_bits_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
-    """Launch the strip suppression kernel (K1): corners [B, N, 8] f32 (CCW,
-    class-major, score-descending within a class), classes [B, N] i32 (< 0
-    for invalid and padded slots), N % TILE == 0.  Returns S as bit rows
-    [B, N, N / 32] int32 (see pack_suppression_bits); the kernel writes
-    every word."""
-    b, n = _check_suppression_inputs("suppression_bits_cuda", corners, classes)
-    lib = _lib()
+def _launch_bits(entry, what, corners, classes, iou_threshold, eps):
+    """Check the inputs, allocate the bit rows uninitialised and launch the
+    library's suppression kernel `entry` on them (it writes every word)."""
+    b, n = _check_suppression_inputs(what, corners, classes)
+    fn = getattr(_lib(), entry)
     with torch.cuda.device(corners.device):
         out = torch.empty((b, n, n // 32), dtype=torch.int32, device=corners.device)
-        code = lib.dafne_suppression_bits(
-            corners.data_ptr(), classes.data_ptr(), out.data_ptr(), b, n,
-            float(iou_threshold), float(eps), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(code, "suppression_bits_cuda")
+        code = fn(corners.data_ptr(), classes.data_ptr(), out.data_ptr(), b, n,
+                  float(iou_threshold), float(eps), torch.cuda.current_stream().cuda_stream)
+    _raise_on(code, what)
+    return out
+
+
+def suppression_bits_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
+    """Launch the strip suppression kernel (K1): corners [B, N, 8] f32 (CCW,
+    any order that is score-descending within a class; fast when class-major,
+    where most blocks are dead or dense), classes [B, N] i32 (< 0 for
+    invalid and padded slots), N % TILE == 0.  Returns S as bit rows
+    [B, N, N / 32] int32 (see pack_suppression_bits)."""
+    out = _launch_bits("dafne_suppression_bits", "suppression_bits_cuda", corners, classes,
+                       iou_threshold, eps)
     suppression_bits_cuda.launches += 1
     return out
 
@@ -246,38 +237,39 @@ def suppression_bits(corners, classes, iou_threshold: float, eps: float = 1e-6):
     raise ValueError(f"suppression_bits: unsupported device {corners.device}")
 
 
-def suppression_matrix_2d_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
-    """Launch the 2-D tiled suppression kernel: corners [B, N, 8] f32 (CCW,
-    any order that is score-descending within a class), classes [B, N] i32
-    (< 0 for invalid and padded slots), N % TILE == 0.  Returns S [B, N, N]
-    int8."""
-    b, n = _check_suppression_inputs("suppression_matrix_2d_cuda", corners, classes)
-    lib = _lib()
-    with torch.cuda.device(corners.device):
-        out = torch.zeros((b, n, n), dtype=torch.int8, device=corners.device)
-        code = lib.dafne_suppression_matrix_2d(
-            corners.data_ptr(), classes.data_ptr(), out.data_ptr(), b, n,
-            float(iou_threshold), float(eps), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(code, "suppression_matrix_2d_cuda")
-    suppression_matrix_2d_cuda.launches += 1
+def suppression_bits_2d_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
+    """Launch the 2-D tiled suppression kernel (K2): corners [B, N, 8] f32
+    (CCW, any order that is score-descending within a class), classes
+    [B, N] i32 (< 0 for invalid and padded slots), N % TILE == 0.  Returns
+    S as bit rows [B, N, N / 32] int32, as K1."""
+    out = _launch_bits("dafne_suppression_bits_2d", "suppression_bits_2d_cuda", corners,
+                       classes, iou_threshold, eps)
+    suppression_bits_2d_cuda.launches += 1
     return out
 
 
-suppression_matrix_2d_cuda.launches = 0
+suppression_bits_2d_cuda.launches = 0
+
+
+def suppression_bits_2d(corners, classes, iou_threshold: float, eps: float = 1e-6):
+    """S of candidates in any score order as bit rows [B, N, N / 32] int32:
+    K2 for CUDA tensors, the packed plain S for CPU tensors."""
+    if corners.is_cuda:
+        return suppression_bits_2d_cuda(corners, classes, iou_threshold, eps)
+    if corners.device.type == "cpu":
+        return pack_suppression_bits(suppression_matrix_plain(corners, classes, iou_threshold, eps))
+    raise ValueError(f"suppression_bits_2d: unsupported device {corners.device}")
 
 
 def suppression_matrix(corners, classes, iou_threshold: float, eps: float = 1e-6,
                        class_major: bool = False):
     """S [B, N, N] int8 (see suppression_matrix_plain).  For CUDA tensors a
-    kernel: the strip kernel when `class_major` (valid only for class-major
-    candidates, invalid last; its bit rows unpacked), else the 2-D tiled
-    kernel, which takes any score-descending order; for CPU tensors the
-    plain version.  NMS takes the bit rows themselves (suppression_bits)."""
+    kernel's bit rows, unpacked: the strip kernel (K1) when `class_major`,
+    else the 2-D tiled kernel (K2); for CPU tensors the plain version.  NMS
+    takes the bit rows themselves (suppression_bits, suppression_bits_2d)."""
     if corners.is_cuda:
-        if class_major:
-            return unpack_suppression_bits(suppression_bits_cuda(corners, classes, iou_threshold, eps))
-        return suppression_matrix_2d_cuda(corners, classes, iou_threshold, eps)
+        kernel = suppression_bits_cuda if class_major else suppression_bits_2d_cuda
+        return unpack_suppression_bits(kernel(corners, classes, iou_threshold, eps))
     if corners.device.type == "cpu":
         return suppression_matrix_plain(corners, classes, iou_threshold, eps)
     raise ValueError(f"suppression_matrix: unsupported device {corners.device}")
@@ -342,5 +334,5 @@ def greedy_keep_bits(bits: torch.Tensor, keep_init: torch.Tensor) -> torch.Tenso
 
 def reset_launch_counts() -> None:
     suppression_bits_cuda.launches = 0
-    suppression_matrix_2d_cuda.launches = 0
+    suppression_bits_2d_cuda.launches = 0
     greedy_keep_bits_cuda.launches = 0

@@ -11,10 +11,10 @@ a global score order; the class-major one lets the kernel skip cross-class
 blocks.
 
 ``impl`` selects the suppression matrix as the JAX argument does: "auto" and
-"pallas" the strip kernel (K1, S as bit rows), "pallas-2d" the 2-D tiled
-kernel (K2, int8 S packed into bit rows), each with the greedy kernel over
-the bit rows, on CUDA tensors (on CPU tensors the dispatchers take the
-plain versions); "xla" the plain int8 versions on any device.
+"pallas" the strip kernel (K1), "pallas-2d" the 2-D tiled kernel (K2), each
+writing S as bit rows for the greedy kernel, on CUDA tensors (on CPU
+tensors the dispatchers take the plain versions, packed); "xla" the plain
+int8 versions on any device.
 """
 
 from __future__ import annotations
@@ -27,9 +27,8 @@ from dafne_torch.ops.kernels.quad_nms import (
     TILE,
     greedy_keep_bits,
     greedy_keep_plain,
-    pack_suppression_bits,
     suppression_bits,
-    suppression_matrix,
+    suppression_bits_2d,
     suppression_matrix_plain,
 )
 from dafne_torch.ops.topk import top_k
@@ -96,11 +95,8 @@ def _greedy_over_suppression(pc, pk, pv, iou_threshold: float, impl: str):
         raise ValueError(f"Unknown NMS impl {impl!r}: expected one of {IMPLS}")
     if impl == "xla":
         return greedy_keep_plain(suppression_matrix_plain(pc, pk, iou_threshold), pv)
-    if impl == "pallas-2d":
-        bits = pack_suppression_bits(suppression_matrix(pc, pk, iou_threshold, class_major=False))
-    else:
-        bits = suppression_bits(pc, pk, iou_threshold)
-    return greedy_keep_bits(bits, pv)
+    suppress = suppression_bits_2d if impl == "pallas-2d" else suppression_bits
+    return greedy_keep_bits(suppress(pc, pk, iou_threshold), pv)
 
 
 def rotated_nms(corners, scores, classes, valid, iou_threshold: float,

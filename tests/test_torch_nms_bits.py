@@ -1,7 +1,7 @@
 """S as bit rows (the interface between K1 and the greedy kernel), port vs JAX.
 
-The strip kernel (K1) writes S as [B, N, N / 32] int32 words and the greedy
-kernel walks them; neither runs on the CPU.  On CPU tensors the dispatchers
+The strip kernel (K1) and the 2-D tiled kernel (K2) write S as [B, N, N / 32]
+int32 words and the greedy kernel walks them; none runs on the CPU.  On CPU tensors the dispatchers
 take the plain versions (the packed plain S, the plain walk over the
 unpacked bits), held here to the Pallas strip kernel in interpret mode and
 to JAX's ``greedy_scan``; chip_smoke.py holds the kernels to the same plain
@@ -14,6 +14,8 @@ import torch
 
 import jax.numpy as jnp
 
+import dafne_tpu.ops.nms as jax_nms
+import dafne_tpu.ops.pallas.quad_nms as jax_qn
 from dafne_tpu.ops.nms import _as_ccw_rows as jax_as_ccw_rows
 from dafne_tpu.ops.pallas.quad_nms import greedy_scan
 
@@ -24,9 +26,12 @@ from dafne_torch.ops.kernels.quad_nms import (
     greedy_keep_plain,
     pack_suppression_bits,
     suppression_bits,
+    suppression_bits_2d,
     unpack_suppression_bits,
 )
+from dafne_torch.ops.nms import rotated_nms
 
+from test_torch_nms_grouped import _interpret_pallas, _score_ordered
 from test_torch_quad_nms import _class_major, _jax_s, _random_boxes
 
 torch.set_num_threads(1)
@@ -132,3 +137,39 @@ def test_greedy_wrapper_takes_n_up_to_49152(n, accepted):
     with pytest.raises(ValueError, match=match):
         greedy_keep_bits_cuda(torch.zeros((1, 1, 1), dtype=torch.int32), keep_init)
     assert greedy_keep_bits_cuda.launches == 0
+
+
+@pytest.mark.parametrize("n,n_classes,dup", [(128, 3, 0.4), (512, 15, 0.4), (512, 4, 0.0)])
+def test_suppression_bits_2d_equal_packed_pallas_2d(n, n_classes, dup):
+    """K2's CPU route (suppression_bits_2d: the plain S, packed) on
+    score-ordered candidates, near-duplicates included, equals the packed S
+    of the Pallas 2-D kernel in interpret mode word for word."""
+    corners, classes = _score_ordered(n, n_classes, seed=n + n_classes, dup=dup)
+    want = np.array(jax_qn.suppression_matrix(jnp.asarray(corners), jnp.asarray(classes), 0.1,
+                                              interpret=True, class_major=False))
+    got = suppression_bits_2d(torch.from_numpy(corners)[None], torch.from_numpy(classes)[None],
+                              0.1)
+    assert got.dtype == torch.int32 and got.shape == (1, n, n // 32) and want.any()
+    np.testing.assert_array_equal(got.numpy(), pack_suppression_bits(torch.from_numpy(want)[None]))
+
+
+@pytest.mark.parametrize("n,n_classes", [(200, 3), (600, 15)])
+def test_pallas_2d_keep_sets_equal_jax(n, n_classes, monkeypatch):
+    """rotated_nms(impl="pallas-2d"), whose bit rows go straight to the
+    greedy walk, keeps the same boxes as JAX's rotated_nms(impl="pallas-2d")
+    (Pallas in interpret mode), and as impl="pallas"."""
+    _interpret_pallas(monkeypatch)
+    rng = np.random.RandomState(n)
+    boxes = _random_boxes(n, seed=n, extent=200.0)
+    boxes[n // 2:] = boxes[: n - n // 2] + rng.uniform(-3, 3, (n - n // 2, 8)).astype(np.float32)
+    scores = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    classes = rng.randint(0, n_classes, n).astype(np.int32)
+    valid = rng.rand(n) > 0.1
+    want = np.asarray(jax_nms.rotated_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                                          jnp.asarray(classes), jnp.asarray(valid), 0.1,
+                                          impl="pallas-2d"))
+    t = [torch.from_numpy(a)[None] for a in (boxes, scores, classes, valid)]
+    got = rotated_nms(*t, 0.1, impl="pallas-2d")[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(rotated_nms(*t, 0.1, impl="pallas")[0].numpy(), want)
+    assert 0 < want.sum() < valid.sum()

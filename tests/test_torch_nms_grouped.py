@@ -3,7 +3,7 @@ decode, port vs JAX.
 
 K2 cannot run on the CPU: its plain version, held here to the Pallas 2-D
 kernel in interpret mode, is what chip_smoke.py holds the kernel to on the
-card.  The JAX side runs on the CPU with impl="xla", and with "pallas-2d"
+card (K2 writes S as bit rows; the plain S packed is its CPU route).  The JAX side runs on the CPU with impl="xla", and with "pallas-2d"
 in interpret mode (the Pallas call patched as tests/test_pallas_nms.py
 does); nothing in dafne_tpu changes.
 """
@@ -24,9 +24,12 @@ from dafne_tpu.ops.postprocess import decode_detections as jax_decode
 
 from dafne_torch.ops.kernels.quad_nms import (
     TILE,
+    TILE_2D,
+    live_blocks,
+    pack_suppression_bits,
+    suppression_bits_2d,
+    suppression_bits_2d_cuda,
     suppression_matrix,
-    suppression_matrix_2d_cuda,
-    tile_interactions,
 )
 from dafne_torch.ops.nms import (
     group_budget,
@@ -53,7 +56,7 @@ def _score_ordered(n, n_classes, seed, dup=0.4, invalid=0.2):
     src = rng.randint(0, n - k, k)
     boxes[n - k:] = boxes[src] + rng.uniform(-2, 2, (k, 8)).astype(np.float32)
     boxes = boxes[rng.permutation(n)]
-    corners = np.asarray(jax_nms._as_ccw_rows(jnp.asarray(boxes)))
+    corners = np.array(jax_nms._as_ccw_rows(jnp.asarray(boxes)))
     classes = rng.randint(0, n_classes, n).astype(np.int32)
     classes[rng.rand(n) < invalid] = -1
     return corners, classes
@@ -62,48 +65,58 @@ def _score_ordered(n, n_classes, seed, dup=0.4, invalid=0.2):
 @pytest.mark.parametrize("n", [TILE, 3 * TILE])
 def test_2d_path_equals_pallas_2d_kernel(n):
     """The port's class_major=False suppression matrix (on the CPU, the
-    plain version of K2) equals the Pallas 2-D kernel entry for entry; every
-    nonzero lies in a tile that tile_interactions marks."""
+    plain version of K2) equals the Pallas 2-D kernel entry for entry, and
+    its bit rows (suppression_bits_2d) the packed Pallas S; every nonzero
+    lies in a tile that K2 computes (live_blocks at TILE_2D)."""
     corners, classes = _score_ordered(n, 4, seed=n)
-    want = np.asarray(jax_qn.suppression_matrix(jnp.asarray(corners), jnp.asarray(classes), 0.1,
-                                                interpret=True))
-    got = suppression_matrix(torch.from_numpy(corners)[None], torch.from_numpy(classes)[None],
-                             0.1, class_major=False)[0].numpy()
+    want = np.array(jax_qn.suppression_matrix(jnp.asarray(corners), jnp.asarray(classes), 0.1,
+                                              interpret=True))
+    tc, tk = torch.from_numpy(corners)[None], torch.from_numpy(classes)[None]
+    got = suppression_matrix(tc, tk, 0.1, class_major=False)[0].numpy()
     assert want.any()
     np.testing.assert_array_equal(got, want)
-    tiles = tile_interactions(torch.from_numpy(classes)[None])[0].numpy()
-    mask = np.kron(tiles, np.ones((TILE, TILE), bool))
+    np.testing.assert_array_equal(suppression_bits_2d(tc, tk, 0.1)[0].numpy(),
+                                  pack_suppression_bits(torch.from_numpy(want)[None])[0].numpy())
+    tiles = live_blocks(tk, TILE_2D, TILE_2D)[0].numpy()
+    mask = np.kron(tiles, np.ones((TILE_2D, TILE_2D), bool))
     assert not (got.astype(bool) & ~mask).any()
 
 
 def test_tile_interactions_is_the_pallas_interaction_test():
-    """Per tile: j >= i and some valid row class equals some column class,
-    as the Pallas kernel's `(j >= i) & any(rcls == ccls)` with its -1/-2
-    sentinels; all-invalid tiles never interact."""
-    n = 5 * TILE
+    """K2's live tiles (live_blocks at TILE_2D) against the Pallas kernel's
+    interaction test, `(j >= i) & any(rcls == ccls)` with its -1/-2
+    sentinels: above the diagonal they are the same tiles; on it, a tile
+    is live only when two of its slots i < j share a valid class, which the
+    Pallas test does not ask; all-invalid tiles never interact."""
+    n = 5 * TILE_2D
     rng = np.random.RandomState(3)
     classes = rng.randint(0, 40, (2, n)).astype(np.int32)
-    classes[:, 2 * TILE:3 * TILE] = -1  # an all-invalid tile
-    classes[1, 3 * TILE:] = rng.randint(40, 43, 2 * TILE)  # classes seen only there
-    got = tile_interactions(torch.from_numpy(classes)).numpy()
-    t = n // TILE
+    classes[:, 2 * TILE_2D:3 * TILE_2D] = -1  # an all-invalid tile
+    classes[1, 3 * TILE_2D:] = rng.randint(40, 43, 2 * TILE_2D)  # classes seen only there
+    classes[0, :TILE_2D] = np.arange(TILE_2D)  # a diagonal tile of distinct classes
+    got = live_blocks(torch.from_numpy(classes), TILE_2D, TILE_2D).numpy()
+    t = n // TILE_2D
+    pallas = np.zeros((2, t, t), bool)
     want = np.zeros((2, t, t), bool)
     for b in range(2):
         for i in range(t):
-            rows = classes[b, i * TILE:(i + 1) * TILE]
+            rows = classes[b, i * TILE_2D:(i + 1) * TILE_2D]
             for j in range(i, t):
-                cols = classes[b, j * TILE:(j + 1) * TILE]
-                want[b, i, j] = bool(np.intersect1d(rows[rows >= 0], cols[cols >= 0]).size)
+                cols = classes[b, j * TILE_2D:(j + 1) * TILE_2D]
+                pallas[b, i, j] = bool(np.intersect1d(rows[rows >= 0], cols[cols >= 0]).size)
+                valid = rows[rows >= 0]
+                want[b, i, j] = pallas[b, i, j] if j > i else len(np.unique(valid)) < len(valid)
     np.testing.assert_array_equal(got, want)
+    assert not (got & ~pallas).any() and (pallas & ~got).any()  # tile (0, 0) of image 0
     assert not got[:, 2, :].any() and not got[:, :, 2].any()
     assert got[0].any() and not got[0].all()
 
 
 def test_2d_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
-        suppression_matrix_2d_cuda(torch.zeros(1, TILE, 8), torch.zeros(1, TILE, dtype=torch.int32),
-                                   0.1)
-    assert suppression_matrix_2d_cuda.launches == 0
+        suppression_bits_2d_cuda(torch.zeros(1, TILE, 8), torch.zeros(1, TILE, dtype=torch.int32),
+                                 0.1)
+    assert suppression_bits_2d_cuda.launches == 0
 
 
 def _grouped_inputs(n, seed, n_classes=15, dense_class=None):

@@ -72,9 +72,33 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      plus false positives with mixed scores an mAP strictly between 0 and
      100.
 
+ 13. TTA at full width: the CLI's --eval-only with TEST.AUG.ENABLED on
+     N_TTA_SCENES synthetic 1024^2 scenes from phase 11's checkpoint, the
+     DOTA-1.0 1024 recipe's ladder (MIN_SIZES 256-1536, MAX_SIZE 1536, HFLIP
+     and VFLIP: 15 copies per scene on canvases 256 to 1536, batch 8 down
+     to 1), grouped NMS: K1 and greedy launched once per eval step, the
+     inference_tta files written; per scene the warp and the eval steps per
+     canvas (CUDA events), the fetch and the merge (host clock) and the
+     boxes into and out of the merge; the peak memory; then one batch per
+     canvas of the first scene rendered again: within WARP_TOL of the same
+     gathers on the CPU, the unit-scale identity, hflip and vflip copies bit
+     for bit, K1's bits and greedy's keep-set equal to their plain versions
+     on that batch's NMS input; and the narrow float32 model's
+     tta_inference_single on the card against the CPU (>= 99% of the CPU
+     detections matched);
+ 14. the train-time augmentation rendered on the card (TPU.TRAIN_DEVICE_AUG):
+     a batch of 8 train records' canvases bit for bit equal to the host
+     mapper's for the same seeds (flips and 90-degree rotations at unit
+     scale), and with the color jitter within one level of the host's
+     apply_color_augmentations; DA_STEPS-step do_train runs with the
+     augmentation on the host and on the card in turns (host, device,
+     device, host), K3 once per step, step ms of each; a few steps with
+     the color jitter on the card.
+
 The line before the last holds one JSON object with every kernel's numbers
-(K1's and greedy's launches from phases 4 and 11's CLI run, K3's from phase
-7, K2's from phase 11's replay); the last line is {"ok": true, "device": {...}}.  Every time printed is
+(K1's and greedy's launches from phases 4, 11's CLI run and 13's TTA run,
+K3's from phases 7 and 14, K2's from phase 11's replay; "launches_by_path"
+splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
 which hold the wrapper's host time when the card waits for the launch;
@@ -115,6 +139,10 @@ SERIAL_STEP_CYCLES = 4
 K1_KERNEL, GREEDY_KERNEL = "suppression_bits_kernel", "greedy_keep_bits_kernel"
 K2_KERNEL, K3_KERNEL = "suppression_bits_2d_kernel", "assign_argmin_kernel"
 
+# traces per kernel count: a trace drops events now and then, in runs of
+# up to 10 of one call's 57 kernels in all 3 traces of a call once
+KERNEL_COUNT_TRACES = 8
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8  # main-path batch, and the batch of the kernel checks
 N_NMS = 4096  # TPU.NMS_MAX_CANDIDATES: the NMS size of the main path
@@ -130,6 +158,12 @@ OVERFIT_STEPS = 30
 OVERFIT_LR = 0.001
 N_EVAL_SCENES = 32  # synthetic_gen1024_val scenes through the eval CLI
 GROUP_K = 512  # TPU.NMS_GROUP_CANDIDATES of the eval path
+N_TTA_SCENES = 4  # scenes through the TTA CLI
+# the DOTA-1.0 1024 recipe's TTA ladder (configs/dota-1.0/1024.yaml): with
+# HFLIP and VFLIP, 15 copies per image on canvases 256, 512, 768, 1024, 1536
+TTA_MIN_SIZES, TTA_MAX_SIZE = "(256, 512, 756, 1024, 1536)", 1536
+WARP_TOL = 1e-3  # rendered TTA copies against the CPU, 0-255 scale
+DA_STEPS = 10  # timed steps per run of the device-aug against host-aug comparison
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -476,8 +510,10 @@ def main() -> int:
     from dafne_torch.engine.optimizer import build_optimizer, clip_gradients_
     from dafne_torch.engine.predictor import Predictor
     from dafne_torch.engine.train_loop import do_train, to_device
+    from dafne_torch.engine import tta as TTA
     from dafne_torch.engine.trainer import (
         batch_targets,
+        device_aug_image,
         flatten_head,
         make_location_tables,
         make_train_step,
@@ -485,6 +521,7 @@ def main() -> int:
     from dafne_torch.models import build_model
     from dafne_torch.ops.kernels import assign as A
     from dafne_torch.ops.kernels import build as kbuild
+    from dafne_torch.ops import device_warp as DW
     from dafne_torch.ops.kernels import quad_nms as K
     from dafne_torch.ops.losses import LossSpec, dafne_losses
     from dafne_torch.evaluation import build_evaluator
@@ -1042,7 +1079,8 @@ def main() -> int:
     # fill and no pack, so beside K2 for K1 the two impls run the same kernels
     per_impl = {impl: device_kernels(lambda: rotated_nms_grouped_batched(
         c0["corners"], c0["scores"], c0["classes"], c0["valid"], thr, gspec.class_merge,
-        gspec.num_classes, GROUP_K, min_total, impl=impl)) for impl in ("pallas", "pallas-2d")}
+        gspec.num_classes, GROUP_K, min_total, impl=impl), traces=KERNEL_COUNT_TRACES)
+        for impl in ("pallas", "pallas-2d")}
     extra = {k: n - per_impl["pallas"][k] for k, n in per_impl["pallas-2d"].items()
              if K2_KERNEL not in k and n > per_impl["pallas"][k]}
     log(f"[eval] replay of the grouped NMS of {len(cands)} batches with impl=pallas-2d: K2 launches "
@@ -1056,7 +1094,7 @@ def main() -> int:
         raise SystemExit(f"impl=pallas-2d runs kernels that impl=pallas does not: {extra}")
     k2_ms, k2_dev, k2_plain_ms, k2_bound, k2_by = check_k2(gpc, gpk, "grouped eval batch [B*G, K]",
                                                            card)
-    del emodel, head0, cands, keeps_2d, keeps
+    del head0, cands, keeps_2d, keeps  # emodel stays for phase 13
     torch.cuda.empty_cache()
 
     # ---- 12. narrow float32 do_test: card (kernels) vs CPU (plain) -----------
@@ -1108,19 +1146,231 @@ def main() -> int:
         raise SystemExit(f"the evaluator scores jittered ground truth and false positives at "
                          f"mAP {mixed_map}, not strictly between 0 and 100")
 
+    # ---- 13. TTA at full width: the DOTA-1.0 1024 recipe's ladder ------------
+    tta_args = eval_args + ["DEBUG.OVERFIT_NUM_IMAGES", str(N_TTA_SCENES), "TEST.AUG.ENABLED",
+                            "True", "TEST.AUG.MIN_SIZES", TTA_MIN_SIZES, "TEST.AUG.MAX_SIZE",
+                            str(TTA_MAX_SIZE)]
+    tcfg = get_cfg()
+    tcfg.merge_from_list(tta_args)
+    tta_records = get_dataset(eval_set, tcfg)
+    do_batches = -(-len(tta_records) // b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    tta_stats = {}
+    t0 = time.perf_counter()
+    results = cli_main(["--eval-only"] + tta_args, tta_stats=tta_stats)
+    tta_cli_s = time.perf_counter() - t0
+    tta_launches = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                    "greedy_keep": K.greedy_keep_bits_cuda.launches}
+    tta_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ts = tta_stats[eval_set]
+    tta_steps = sum(sum(p["steps"].values()) for p in ts["per_image"])
+    log(f"[tta] launches in the CLI run (do_test: {do_batches} batch; TTA: {tta_steps} eval "
+        f"steps): {tta_launches}")
+    if set(tta_launches.values()) != {do_batches + tta_steps}:
+        raise SystemExit(f"K1 and greedy did not launch once per eval step: {tta_launches}")
+    tta_launches = {k: v - do_batches for k, v in tta_launches.items()}  # TTA's own
+    inference_tta = os.path.join(eval_dir, "inference_tta", eval_set)
+    written = [os.path.join(inference_tta, "results.txt")]
+    written += [os.path.join(inference_tta, "task1", f"Task1_{c}.txt") for c in GEN_CLASSES]
+    missing = [f for f in written if not os.path.exists(f)]
+    if missing or "mAP" not in results["tta"][eval_set] or ts["images"] != len(tta_records):
+        raise SystemExit(f"the TTA run did not write {missing} or missed images")
+    want_steps = {256: 1, 512: 1, 768: 1, 1024: 1, 1536: 3}  # batches 8, 8, 7, 4, 1
+    topk = tcfg.MODEL.DAFNE.POST_NMS_TOPK_TEST
+    for i, st in enumerate(ts["per_image"]):
+        if st["copies"] != 15 or st["steps"] != want_steps or not 0 < st["boxes_out"] <= topk:
+            raise SystemExit(f"TTA image {i}: {st['copies']} copies, steps {st['steps']}, "
+                             f"{st['boxes_out']} boxes out")
+        log(f"[tta] image {i}: {st['copies']} copies; warp {st['warp_ms']:.3f} ms (CUDA events); "
+            f"eval steps per canvas (CUDA events, ms) "
+            f"{json.dumps({c: round(v, 3) for c, v in st['eval_ms'].items()})}, steps "
+            f"{json.dumps(st['steps'])}; fetch {st['fetch_ms']:.3f} ms and merge "
+            f"{st['merge_ms']:.3f} ms (host clock); boxes into the merge {st['boxes_in']}, out "
+            f"{st['boxes_out']} [{card}]")
+    for image_id, det in ts["preds"].items():
+        if not (np.isfinite(det["corners"]).all() and ((det["scores"] > 0) & (det["scores"] <= 1)).all()
+                and ((det["classes"] >= 0) & (det["classes"] < 15)).all()):
+            raise SystemExit(f"malformed TTA detections for {image_id}")
+    split = {k: statistics.mean(p[k] for p in ts["per_image"])
+             for k in ("warp_ms", "fetch_ms", "merge_ms", "boxes_in", "boxes_out")}
+    split["eval_ms"] = statistics.mean(sum(p["eval_ms"].values()) for p in ts["per_image"])
+    later = [p["wall_ms"] for p in ts["per_image"][1:]]  # the first pays cuDNN's search
+    log(f"[tta] CLI --eval-only TEST.AUG.ENABLED True on {ts['images']} scenes ({CANVAS}x{CANVAS}, "
+        f"MIN_SIZES {TTA_MIN_SIZES}, MAX_SIZE {TTA_MAX_SIZE}, HFLIP and VFLIP: 15 copies each) in "
+        f"{tta_cli_s:.2f} s wall (model build, restore, do_test, TTA, files): TTA loop "
+        f"{ts['loop_s']:.3f} s = {ts['loop_s'] / ts['images']:.3f} s/image (per image "
+        f"{[round(p['wall_ms'], 1) for p in ts['per_image']]} ms, host clock; after the first "
+        f"{statistics.mean(later) / 1e3:.3f} s/image); mean per image "
+        f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; evaluate() "
+        f"{ts['evaluate_s']:.3f} s; peak memory {tta_peak_gib:.2f} GiB (max_memory_allocated; "
+        f"canvas 1536 at batch 1) [{card}]")
+
+    # one batch per canvas of the first scene: the rendered copies against the
+    # same gathers on the CPU, and K1 and greedy against their plain versions
+    emodel.eval()
+    steps = TTA.BucketedEvalSteps(tcfg, emodel)
+    tspec = DecodeSpec.from_config(tcfg)
+    img0 = tta_records[0]["image"]
+    h0, w0 = img0.shape[:2]
+    groups = {}
+    for aug in TTA.build_tta_augs(tcfg, w0, h0):
+        side = steps._canvas_for(max(aug.out_h, aug.out_w))
+        q = DW.separable_warp_params(aug, w0, h0, (side, side))
+        groups.setdefault((side, q.transpose), []).append((aug, q))
+    if h0 % steps.div or w0 % steps.div:
+        raise SystemExit(f"scene {h0}x{w0} is off the divisibility grid: the base needs padding")
+    base_cpu = torch.from_numpy(img0)
+    base_dev = base_cpu.cuda()
+    tta_canvas = {}
+    with torch.inference_mode():
+        for (side, transpose), items in sorted(groups.items()):
+            _, _, bsz = steps.get_fused((h0, w0), (side, side), transpose)
+            chunk = items[:bsz]
+            chunk += [chunk[-1]] * (bsz - len(chunk))  # padded as tta_inference_single pads
+            p = DW.stack_warps([q for _, q in chunk])
+            wt = DW.warp_tensors(p, "cuda")
+            imgs = DW.device_warp(base_dev, wt, transpose)
+            ref = DW.device_warp(base_cpu, DW.warp_tensors(p, "cpu"), transpose)
+            err = float((imgs.cpu() - ref).abs().max())
+            exact = 0
+            for i, (aug, q) in enumerate(items[:bsz]):
+                if (q.out_h, q.out_w) == (h0, w0):  # unit scale: a permutation copy
+                    host = torch.from_numpy(aug.apply_image(img0).astype(np.float32))
+                    if not (torch.equal(imgs[i].cpu(), host) and torch.equal(ref[i], host)):
+                        raise SystemExit(f"TTA copy {i} at canvas {side} is not the exact "
+                                         "permutation of the image")
+                    exact += 1
+            if err > WARP_TOL:
+                raise SystemExit(f"TTA copies at canvas {side} differ from the CPU by {err}")
+            warp_ms = cuda_ms(lambda: DW.device_warp(base_dev, wt, transpose), reps=10, warmup=2)
+            c = nms_candidates(emodel(imgs), tspec)
+            pc, pk, pv = single_group_inputs(*grouped_nms_inputs(
+                c["corners"], c["scores"], c["classes"], c["valid"], tspec.class_merge,
+                tspec.num_classes, tspec.nms_group_candidates,
+                max(tspec.nms_max_candidates, tspec.post_nms_topk))[1:])
+            bits_, s_ = check_k1(pc, pk, thr, f"TTA canvas {side}")
+            kept = int(check_greedy(bits_, s_, pv, f"TTA canvas {side}").sum())
+            k1_t = cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr), reps=10)
+            tta_canvas[side] = {"batch": bsz, "copies": min(bsz, len(items)), "nms_rows": list(pk.shape),
+                                "valid_slots": int(pv.sum()), "kept": kept, "warp_ms": round(warp_ms, 4),
+                                "K1_ms": round(k1_t, 4), "max_abs_err_vs_cpu": err,
+                                "exact_permutation_copies": exact}
+    log(f"[tta] one batch per canvas of scene 0: copies within {WARP_TOL} of the same gathers on "
+        f"the CPU (0-255 scale), the unit-scale permutation copies bit for bit; K1's bits equal to "
+        f"the packed plain S and greedy equal to the plain walk on every canvas: "
+        f"{json.dumps(tta_canvas)} [{card}]")
+    if sum(v["exact_permutation_copies"] for v in tta_canvas.values()) != 3:
+        raise SystemExit("the canvas-1024 identity, hflip and vflip copies were not all checked")
+    del steps, base_dev, imgs, ref, bits_, s_, emodel
+    torch.cuda.empty_cache()
+
+    # the narrow float32 model's TTA on the card (kernels) and on the CPU (plain)
+    ntcfg = get_cfg()
+    ntcfg.merge_from_list(NARROW + [
+        "TEST.AUG.MIN_SIZES", "(128, 256)", "TEST.AUG.MAX_SIZE", "256",
+        "TPU.NMS_GROUP_CANDIDATES", "64", "TPU.NMS_MAX_CANDIDATES", "1024",
+        "MODEL.DAFNE.POST_NMS_TOPK_TEST", "300"])
+    nref = build_model(ntcfg, device="cpu", generator=torch.Generator().manual_seed(8)).eval()
+    with torch.no_grad():
+        nref.head.cls_logits.bias.fill_(-2.0)
+    nimg = load_synthetic_gen("test", 1, hw=256)[0]["image"]
+    want = TTA.tta_inference_single(ntcfg, TTA.BucketedEvalSteps(ntcfg, nref), nimg)
+    got = TTA.tta_inference_single(ntcfg, TTA.BucketedEvalSteps(ntcfg, copy.deepcopy(nref).cuda()),
+                                   nimg)
+    matched, total = match_rate({"0": got}, {"0": want})
+    log(f"[tta reference] narrow R-50 f32, one 256x256 scene, 6 copies (128 and 256): "
+        f"{matched}/{total} CPU detections matched on the card ({len(got['scores'])} on the card)")
+    if total < 100 or matched < 0.99 * total:
+        raise SystemExit("the card's TTA disagrees with the CPU reference")
+
+    # ---- 14. train-time augmentation rendered on the card -------------------
+    da_cfg, host_cfg = copy.deepcopy(train_cfg), copy.deepcopy(train_cfg)
+    da_cfg.TPU.TRAIN_DEVICE_AUG, host_cfg.TPU.TRAIN_DEVICE_AUG = True, False
+    idx = list(range(b))
+    seeds = [100 + i for i in idx]
+    for color in (False, True):
+        for c_ in (da_cfg, host_cfg):
+            c_.INPUT.USE_COLOR_AUGMENTATIONS = color
+        da_loader = DataLoader(da_cfg, train_records, b, pad_hw=(CANVAS, CANVAS), pin_memory=True,
+                               device_aug=True)
+        host_loader = DataLoader(host_cfg, train_records, b, pad_hw=(CANVAS, CANVAS),
+                                 pin_memory=True)
+        da_batch = da_loader.make_batch(idx, seeds)
+        want_img = host_loader.make_batch(idx, seeds)["image"].float()
+        dev = to_device(da_batch, "cuda")
+        got_img = device_aug_image(dev, color).cpu()
+        render_ms = cuda_ms(lambda: device_aug_image(dev, color), reps=10, warmup=2)
+        diff = (got_img - want_img).abs()
+        transposed = sum(not torch.equal(da_batch["image_base"][i], torch.from_numpy(
+            da_loader.records[i]["image"])) for i in idx)
+        log(f"[train device-aug] batch of {b} records, seeds {seeds[0]}-{seeds[-1]}, color jitter "
+            f"{color}: canvas rendered on the card vs the host mapper's: max |diff| "
+            f"{float(diff.max())} levels, equal on {float((diff == 0).float().mean()):.6f} of the "
+            f"values; {transposed} draws anti-diagonal (base transposed on the host); render "
+            f"{render_ms:.3f} ms (CUDA events, median of 10) [{card}]")
+        if float(diff.max()) > (1.0 if color else 0.0):
+            raise SystemExit(f"the device-rendered train canvas differs from the host's "
+                             f"(color {color}) by {float(diff.max())}")
+    da_cfg.INPUT.USE_COLOR_AUGMENTATIONS = host_cfg.INPUT.USE_COLOR_AUGMENTATIONS = False
+    damodel = build_model(train_cfg, device="cuda", generator=torch.Generator().manual_seed(9))
+    warm = copy.deepcopy(da_cfg)
+    warm.SOLVER.MAX_ITER = WARMUP_STEPS
+    do_train(warm, damodel, train_records)
+    step_ms = {"host": [], "device": []}
+    da_launches = 0
+    for where in ("host", "device", "device", "host"):
+        c_ = copy.deepcopy(da_cfg if where == "device" else host_cfg)
+        c_.SOLVER.MAX_ITER = DA_STEPS
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        last = do_train(c_, damodel, train_records)
+        torch.cuda.synchronize()
+        step_ms[where].append((time.perf_counter() - t0 - last["checkpoint_s"]) * 1e3 / DA_STEPS)
+        if A.assign_argmin_cuda.launches != DA_STEPS or not last["loss_is_finite"]:
+            raise SystemExit(f"{where}-aug do_train: K3 launched {A.assign_argmin_cuda.launches} "
+                             f"times in {DA_STEPS} steps, losses {last}")
+        if where == "device":
+            da_launches += A.assign_argmin_cuda.launches
+    colored = copy.deepcopy(da_cfg)
+    colored.INPUT.USE_COLOR_AUGMENTATIONS = True
+    colored.SOLVER.MAX_ITER = WARMUP_STEPS
+    last = do_train(colored, damodel, train_records)
+    if not last["loss_is_finite"]:
+        raise SystemExit(f"device-aug do_train with color jitter: non-finite loss {last}")
+    log(f"[train device-aug] DOTA-1.0 1024 recipe, R-50 full width, batch {b}: step_ms with the "
+        f"augmentation rendered on the card {[round(v, 2) for v in step_ms['device']]} beside "
+        f"the host's {[round(v, 2) for v in step_ms['host']]} (runs of {DA_STEPS} steps through "
+        f"do_train in the order host, device, device, host; host clock, synchronised, loader start "
+        f"included, checkpoint save excluded); K3 launched once per step; {WARMUP_STEPS} steps with "
+        f"color jitter on the card: loss/total {last['loss/total']:.4f} [{card}]")
+    del damodel
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
-         "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"],
+         "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"]
+         + tta_launches["suppression_matrix"],
+         "launches_by_path": {"inference": launches["suppression_matrix"],
+                              "eval": eval_launches["suppression_matrix"],
+                              "tta": tta_launches["suppression_matrix"]},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
-         "launches": launches["greedy_keep"] + eval_launches["greedy_keep"],
+         "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
+         + tta_launches["greedy_keep"],
+         "launches_by_path": {"inference": launches["greedy_keep"],
+                              "eval": eval_launches["greedy_keep"],
+                              "tta": tta_launches["greedy_keep"]},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
-         "replaces": "dafne_tpu/ops/pallas/assign.py:35", "launches": train_launches,
+         "replaces": "dafne_tpu/ops/pallas/assign.py:35", "launches": train_launches + da_launches,
+         "launches_by_path": {"train": train_launches, "train_device_aug": da_launches},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",

@@ -1,9 +1,9 @@
 """Default keys the port reads, with the JAX package's names and values.
 
 The keys of inference (model, head, test-time input, decode budgets), of
-training (solver, assignment and losses, train-time input and sampler) and
-of evaluation (datasets, checkpoint weights, test settings, eval batch);
-counterpart of
+training (solver, assignment and losses, train-time input and sampler, the
+device-side augmentation), of evaluation (datasets, checkpoint weights,
+test settings, eval batch) and of test-time augmentation; counterpart of
 ``dafne_tpu/config/defaults.py``.  ``tests/test_torch_config.py`` holds
 every value equal to the JAX package's default of the same name.
 """
@@ -163,7 +163,13 @@ def build_defaults() -> CfgNode:
     _C.TEST.IOU_TH = 0.5  # VOC-07 AP overlap threshold
     _C.TEST.NUM_PRED_VIS = 20  # sample renderings (not ported: needs cv2)
     _C.TEST.AUG = CfgNode()
-    _C.TEST.AUG.ENABLED = False  # TTA; True is not ported and raises
+    _C.TEST.AUG.ENABLED = False  # TTA (engine/tta.py) after do_test in the CLI
+    _C.TEST.AUG.MIN_SIZES = (400, 500, 600, 700, 800, 900, 1000, 1100, 1200)
+    _C.TEST.AUG.MAX_SIZE = 4000
+    _C.TEST.AUG.FLIP = True
+    _C.TEST.AUG.HFLIP = True
+    _C.TEST.AUG.VFLIP = True
+    _C.TEST.AUG.ROTATION_ANGLES = ()  # multiples of 90 only: others raise
 
     # key names kept from the JAX package's TPU namespace so recipes merge
     t = _C.TPU = CfgNode()
@@ -171,11 +177,18 @@ def build_defaults() -> CfgNode:
     t.MAX_INSTANCES = 256  # static per-image gt padding
     t.NMS_GROUP_CANDIDATES = 0  # >0: per-class-group NMS budget; 0: global cap
     t.NMS_MAX_CANDIDATES = 4096  # static NMS input size (global score cap)
+    t.DECODE_APPROX_TOPK = False  # True (approximate top-k) is not ported and raises
     t.EVAL_BATCH = 16  # eval images per step
     t.ASSIGN_IMPL = "auto"  # "pallas" (the CUDA kernel) | "xla" (plain) | "auto"
     t.IMAGE_SIZE_DIVISIBILITY = 128
     t.PREFETCH_DEPTH = 2  # batches the train loader keeps ready
     t.HOST_ASSIGN = False  # True is not ported and raises
-    t.TRAIN_DEVICE_AUG = "auto"  # True is not ported and raises; "auto" is off
+    t.TRAIN_DEVICE_AUG = "auto"  # train augmentation rendered on the device
+    # (ops/device_warp.py): True | False | "auto" (on with <= 2 host cores)
+    t.TTA_DEVICE_AUG = True  # TTA copies rendered on the device; False (host
+    # cv2 warps) is not ported and raises
+    t.EVAL_INT8 = False  # w8a8 eval convs: True is not ported and raises
+    t.EVAL_INT8_SCALES = ""  # calibrated activation scales (with EVAL_INT8)
+    t.EVAL_INT8_MIN_CHANNELS = 0  # smallest quantized conv width (with EVAL_INT8)
 
     return _C

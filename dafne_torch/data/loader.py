@@ -8,12 +8,17 @@ into one batch, in pinned memory when asked, ready for a non-blocking copy
 to the card.  Training batches are infinite, drawn with the JAX loader's
 per-example seeds and prefetched by a producer thread; eval batches (:232)
 walk the records in order, the last batch padded with repeats of its last
-record, with each slot's ``image_id`` and ``batch_valid``.
+record, with each slot's ``image_id`` and ``batch_valid``.  With
+``device_aug`` (:90-160) a train batch holds the base images
+("image_base", on the ``device_aug_base_hw`` canvas) and the mapper's warp
+and color vectors instead of rendered canvases; records without a size
+fall back to the host path.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -22,7 +27,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dafne_torch.data.mapper import DatasetMapper, pad_target_hw
+from dafne_torch.data.mapper import DatasetMapper, device_aug_base_hw, pad_target_hw
 
 GT_KEYS = ("gt_corners", "gt_hbox", "gt_classes", "gt_area", "gt_valid")
 
@@ -77,17 +82,25 @@ class DataLoader:
     """Batches of `batch_size` over `records`, mapped by
     DATALOADER.NUM_WORKERS threads.  `train`: infinite, kept
     TPU.PREFETCH_DEPTH batches ahead by a producer thread; else one pass in
-    record order (``len`` batches)."""
+    record order (``len`` batches).  `device_aug` (train only): device-aug
+    batches; ``self.device_aug`` says whether the loader makes them."""
 
     def __init__(self, cfg, records: List[dict], batch_size: int, seed: int = 0,
                  pad_hw: Optional[Tuple[int, int]] = None, pin_memory: bool = False,
-                 train: bool = True):
+                 train: bool = True, device_aug: bool = False):
         if train and cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
             records = [r for r in records if r.get("annotations")] or records
         self.records = records
         self.batch_size = batch_size
         self.train = train
-        self.mapper = DatasetMapper(cfg, pad_hw or pad_target_hw(cfg, train=train), train=train)
+        self.base_hw = device_aug_base_hw(records) if device_aug and train else None
+        self.device_aug = self.base_hw is not None
+        if device_aug and train and not self.device_aug:
+            logging.getLogger("dafne_torch").warning(
+                "TPU.TRAIN_DEVICE_AUG: records lack width/height; falling back to host-side "
+                "augmentation")
+        self.mapper = DatasetMapper(cfg, pad_hw or pad_target_hw(cfg, train=train), train=train,
+                                    device_aug=self.device_aug)
         self.num_workers = cfg.DATALOADER.NUM_WORKERS
         self.prefetch = max(1, cfg.TPU.PREFETCH_DEPTH)
         self.seed = seed
@@ -97,9 +110,12 @@ class DataLoader:
     def make_batch(self, indices: List[int], seeds: List[int],
                    pool: Optional[ThreadPoolExecutor] = None) -> Dict:
         """Map records `indices` with RandomState(seeds[i]) each, rendering
-        straight into one [B, pad_h, pad_w, 3] uint8 tensor."""
-        images = torch.zeros((len(indices), self.mapper.pad_h, self.mapper.pad_w, 3),
-                             dtype=torch.uint8, pin_memory=self.pin_memory)
+        straight into one [B, pad_h, pad_w, 3] uint8 tensor ("image"), or
+        with device aug placing the base images in one [B, *base_hw, 3]
+        ("image_base")."""
+        hw = self.base_hw if self.device_aug else (self.mapper.pad_h, self.mapper.pad_w)
+        images = torch.zeros((len(indices), *hw, 3), dtype=torch.uint8,
+                             pin_memory=self.pin_memory)
         view = images.numpy()
 
         def one(args):
@@ -108,7 +124,8 @@ class DataLoader:
 
         work = list(zip(range(len(indices)), indices, seeds))
         examples = list(pool.map(one, work)) if pool is not None else [one(a) for a in work]
-        batch = {"image": images, "image_id": [e["image_id"] for e in examples]}
+        img_key = "image_base" if self.device_aug else "image"
+        batch = {img_key: images, "image_id": [e["image_id"] for e in examples]}
         for k in examples[0]:
             if k not in batch:
                 t = torch.from_numpy(np.stack([e[k] for e in examples]))

@@ -1,8 +1,9 @@
 """Dataset mapper: record dict -> static-shape example, train or eval.
 
 Counterpart of ``dafne_tpu/data/mapper.py`` (``DatasetMapper.__call__``
-:113-262, ``_sort_quad_np`` :26, ``_shoelace`` :68, ``eval_pad_hw``
-:335-362):
+:113-262 with its device-aug branch :87-110, :144-210, :265-301,
+``_sort_quad_np`` :26, ``_shoelace`` :68, ``device_aug_base_hw`` :304,
+``eval_pad_hw`` :335-362):
 
   augmentation (``data/transforms.py``: the random train map, or the
   test-time resize) -> corners transformed exactly -> degenerate instances
@@ -11,9 +12,15 @@ Counterpart of ``dafne_tpu/data/mapper.py`` (``DatasetMapper.__call__``
   (pad_h, pad_w) canvas, with the record's image_id, its original and
   resized sizes and the resized-to-original scale.
 
+With ``device_aug`` (``TPU.TRAIN_DEVICE_AUG``) a train example carries the
+unwarped base image ("image_base", transposed on the host when the draw
+is anti-diagonal) and the draw's separable-warp taps ("aug_*", and the
+color-jitter draws with INPUT.USE_COLOR_AUGMENTATIONS) instead of a
+rendered "image"; the train step renders it on the device.  Corners still
+transform exactly on the host.
+
 Records carry their image as a uint8 array (``record["image"]``): decoding
-files is not ported.  The device-side augmentation path
-(``TPU.TRAIN_DEVICE_AUG``) is not ported either.
+files is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from dafne_torch.data import transforms as T
+from dafne_torch.ops.device_warp import WARP_KEYS, draw_color_params, separable_warp_params
 
 
 def _sort_quad_np(corners: np.ndarray) -> np.ndarray:
@@ -71,23 +79,25 @@ def _shoelace(corners: np.ndarray) -> np.ndarray:
 
 
 class DatasetMapper:
-    """Callable record -> train or eval example (numpy arrays)."""
+    """Callable record -> train or eval example (numpy arrays); with
+    `device_aug` (train only) the example is a device-aug one."""
 
-    def __init__(self, cfg, pad_hw: Tuple[int, int], train: bool = True):
-        if train and cfg.TPU.TRAIN_DEVICE_AUG is True:
-            raise NotImplementedError("TPU.TRAIN_DEVICE_AUG=True is not ported")
+    def __init__(self, cfg, pad_hw: Tuple[int, int], train: bool = True,
+                 device_aug: bool = False):
         self.cfg = cfg
         self.train = train
         self.pad_h, self.pad_w = pad_hw
         self.max_inst = cfg.TPU.MAX_INSTANCES
         self.sort_corners = cfg.MODEL.DAFNE.SORT_CORNERS_DATALOADER
         self.color_aug = cfg.INPUT.USE_COLOR_AUGMENTATIONS and train
+        self.device_aug = device_aug and train
 
     def __call__(self, record: Dict, rng: Optional[np.random.RandomState] = None,
                  image_out: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """`rng` draws the train augmentation (unused at eval).  `image_out`:
-        an optional zeroed [pad_h, pad_w, 3] uint8 buffer (a slice of the
-        batch) to render into; the example's "image" is it."""
+        an optional zeroed uint8 buffer (a slice of the batch) to render
+        into, [pad_h, pad_w, 3], or with device aug a base canvas that holds
+        the base image; the example's "image" (or "image_base") is it."""
         if "image" not in record:
             raise NotImplementedError("records must carry their image: decoding is not ported")
         rng = rng or np.random.RandomState()
@@ -97,9 +107,12 @@ class DatasetMapper:
             aug = T.build_train_augmentations(self.cfg, w, h, rng)
         else:
             aug = T.build_test_augmentation(self.cfg, w, h)
-        img = aug.apply_image(img)
-        if self.color_aug:
-            img = T.apply_color_augmentations(img, rng)
+        if self.device_aug:
+            transpose, aug_params = self._device_aug_params(aug, w, h, rng)
+        else:
+            img = aug.apply_image(img)
+            if self.color_aug:
+                img = T.apply_color_augmentations(img, rng)
 
         annos = record.get("annotations", [])
         corners = np.asarray([a["corners"] for a in annos], dtype=np.float64).reshape(-1, 8)
@@ -130,6 +143,19 @@ class DatasetMapper:
             gt_area[:n] = _shoelace(c)
             gt_valid[:n] = True
             gt_difficult[:n] = difficult[:n]
+        gts = {"gt_corners": gt_corners, "gt_hbox": gt_hbox, "gt_classes": gt_classes,
+               "gt_area": gt_area, "gt_valid": gt_valid, "gt_difficult": gt_difficult}
+
+        if self.device_aug:
+            rh, rw = aug.out_h, aug.out_w
+            base = np.ascontiguousarray(img.transpose(1, 0, 2)) if transpose else img
+            bh, bw = base.shape[:2]
+            canvas = image_out if image_out is not None else np.zeros((bh, bw, 3), np.uint8)
+            if bh > canvas.shape[0] or bw > canvas.shape[1]:
+                raise ValueError(f"base image ({bh}, {bw}) exceeds the device-aug base canvas "
+                                 f"{canvas.shape[:2]}")
+            canvas[:bh, :bw] = base
+            return {"image_base": canvas, **aug_params, **gts, **self._meta(record, h, w, rh, rw)}
 
         rh, rw = img.shape[:2]
         if img.dtype != np.uint8:
@@ -139,20 +165,47 @@ class DatasetMapper:
         canvas = image_out if image_out is not None else np.zeros(
             (self.pad_h, self.pad_w, 3), np.uint8)
         canvas[:rh, :rw] = img
+        return {"image": canvas, **gts, **self._meta(record, h, w, rh, rw)}
+
+    @staticmethod
+    def _meta(record, h, w, rh, rw) -> Dict:
         return {
-            "image": canvas,
-            "gt_corners": gt_corners,
-            "gt_hbox": gt_hbox,
-            "gt_classes": gt_classes,
-            "gt_area": gt_area,
-            "gt_valid": gt_valid,
-            "gt_difficult": gt_difficult,
             "image_id": record.get("image_id", ""),
             "orig_hw": np.asarray([h, w], np.int32),
             "resized_hw": np.asarray([rh, rw], np.int32),
             # resized -> original scale, to rescale predictions at eval
             "scale_xy": np.asarray([w / rw, h / rh], np.float32),
         }
+
+    def _device_aug_params(self, aug, w, h, rng) -> Tuple[bool, Dict]:
+        """(whether the base is transposed, the example's vectors): this
+        draw's warp taps onto the (pad_h, pad_w) canvas, its output extent
+        and, with color aug, the jitter draws (taken from `rng` where the
+        host path's ``apply_color_augmentations`` takes them)."""
+        warp = separable_warp_params(aug, w, h, (self.pad_h, self.pad_w))
+        if warp is None:
+            raise RuntimeError("TPU.TRAIN_DEVICE_AUG drew a non-separable augmentation; "
+                               "transforms.train_geometric_augs_separable should have refused it")
+        out = {"aug_out_hw": np.asarray([warp.out_h, warp.out_w], np.int32)}
+        out.update({"aug_" + k: getattr(warp, k) for k in WARP_KEYS})
+        if self.color_aug:
+            out.update(draw_color_params(rng))
+        return warp.transpose, out
+
+
+def device_aug_base_hw(records) -> Optional[Tuple[int, int]]:
+    """The static base canvas of device aug: the largest source side over
+    the records, squared (square because anti-diagonal draws transpose the
+    base).  None when a record has neither its size nor its image."""
+    s = 0
+    for r in records:
+        w, h = r.get("width"), r.get("height")
+        if (not w or not h) and "image" in r:
+            h, w = r["image"].shape[:2]
+        if not w or not h:
+            return None
+        s = max(s, int(w), int(h))
+    return (s, s) if s else None
 
 
 def pad_target_hw(cfg, train: bool) -> Tuple[int, int]:

@@ -3,17 +3,19 @@
 Counterpart of ``dafne_tpu/data/transforms.py``: ``AffineAug``,
 ``identity``, ``hflip``, ``vflip``, ``rotation``, ``resize``,
 ``shortest_edge_resize``, ``build_train_augmentations`` (:187, the same rng
-draws in the same order), ``build_test_augmentation`` (:264) and
-``apply_color_augmentations`` (:284).  Every
-geometric augmentation is an affine map; the pipeline composes into one
-matrix, corners transform exactly, and the image is transformed once.
+draws in the same order), ``train_geometric_augs_separable`` (:248),
+``build_test_augmentation`` (:264) and ``apply_color_augmentations``
+(:284).  Every geometric augmentation is an affine map; the pipeline
+composes into one matrix, corners transform exactly (and map back with
+``AffineAug.invert_coords``), and the image is transformed once.
 
-Images: only signed-permutation matrices at unit scale are rendered
-(flips, transposes and 90-degree rotations of a square image, which is
-what the square DOTA 1024 recipe draws, and the identity of its 1024^2
-test tiles at unit scale), as the numpy copy the JAX
-package's fast path (:62-110) makes with cv2.  Any other matrix, a general
-angle or a resize, needs a warp and raises ``NotImplementedError``.
+Images on the host: only signed-permutation matrices at unit scale are
+rendered (flips, transposes and 90-degree rotations of a square image,
+and the identity of the 1024^2 test tiles at unit scale), as the numpy
+copy the JAX package's fast path (:62-110) makes with cv2.  Any other
+matrix needs a warp and raises ``NotImplementedError`` here; separable
+ones (resizes, flips, 90-degree rotations) render on the device through
+``ops/device_warp.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ class AffineAug:
         shape = pts.shape
         p = pts.reshape(-1, 2).astype(np.float64)
         return (p @ self.matrix[:, :2].T + self.matrix[:, 2]).reshape(shape)
+
+    def invert_coords(self, pts: np.ndarray) -> np.ndarray:
+        """The inverse map: transformed pts [..., 2] -> source (float64)."""
+        inv = np.linalg.inv(np.vstack([self.matrix, [0, 0, 1]]))[:2]
+        shape = pts.shape
+        p = pts.reshape(-1, 2).astype(np.float64)
+        return (p @ inv[:, :2].T + inv[:, 2]).reshape(shape)
 
     def compose(self, other: "AffineAug") -> "AffineAug":
         """self followed by other."""
@@ -163,6 +172,20 @@ def build_train_augmentations(cfg, w: int, h: int, rng: np.random.RandomState,
         aug = aug.compose(resize(aug.out_w, aug.out_h, cfg.INPUT.RESIZE_WIDTH_TRAIN,
                                  cfg.INPUT.RESIZE_HEIGHT_TRAIN))
     return aug
+
+
+def train_geometric_augs_separable(cfg) -> bool:
+    """True iff every train-time geometric draw of `cfg` is separable (a
+    signed (anti)diagonal linear part, ``ops/device_warp.py``): flips and
+    resizes always are; rotations only when every angle is a multiple of
+    90 degrees.  A continuous "range" of angles is not."""
+    angles = [float(a) for a in cfg.INPUT.ROTATION_AUG_ANGLES]
+    if not angles:
+        return True
+    if cfg.INPUT.ROTATION_AUG_SAMPLE_STYLE == "range" and len(angles) == 2:
+        if angles[0] != angles[1]:
+            return False
+    return all(a % 90.0 == 0.0 for a in angles)
 
 
 def build_test_augmentation(cfg, w: int, h: int) -> AffineAug:

@@ -1,7 +1,8 @@
 """Inference step: raw-pixel images -> fixed-size detections.
 
-Counterpart of ``dafne_tpu/engine/trainer.py::make_eval_step`` (without
-int8): the model forward, then ``decode_detections``.
+Counterpart of ``dafne_tpu/engine/trainer.py::make_eval_step``: the model
+forward, then ``decode_detections``.  int8 convs (``TPU.EVAL_INT8``) are
+not ported: the step raises when the key is set.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ def make_eval_step(model, cfg, image_hw: Tuple[int, int]) -> Callable[..., Dict[
     Images are raw pixels on the model's device, H x W = `image_hw`.  The
     step returns the dict of ``decode_detections``: [B, POST_NMS_TOPK_TEST]
     corners, hboxes, scores, classes, centerness, locations and valid."""
+    if cfg.TPU.EVAL_INT8:
+        raise NotImplementedError("TPU.EVAL_INT8 (w8a8 eval convs) is not ported")
     spec = DecodeSpec.from_config(cfg)
     image_hw = tuple(image_hw)
 

@@ -5,7 +5,8 @@ device:
 
 - ``do_train`` (:288): ``auto_scale_config`` to a world size of 1, resume or
   bootstrap through ``engine/checkpoint.py``, the train records through
-  the port's loader onto the static train canvas, SOLVER.MAX_ITER steps,
+  the port's loader onto the static train canvas (rendered on the device
+  when ``resolve_train_device_aug`` says so, :331-372), SOLVER.MAX_ITER steps,
   the metric writers every 20 iterations (and at the first), the
   ``DEBUG.NAN_CHECK`` raise, a checkpoint every SOLVER.CHECKPOINT_PERIOD
   iterations and at the end, and ``do_test`` every TEST.EVAL_PERIOD.
@@ -38,17 +39,23 @@ from dafne_torch.engine.checkpoint import Checkpointer
 from dafne_torch.engine.events import build_writers
 from dafne_torch.engine.inference import make_eval_step
 from dafne_torch.engine.optimizer import auto_scale_config, build_optimizer
-from dafne_torch.engine.trainer import make_train_step
+from dafne_torch.engine.trainer import make_train_step, resolve_train_device_aug
 from dafne_torch.evaluation import build_evaluator
+from dafne_torch.ops.device_warp import WARP_KEYS
 
 logger = logging.getLogger("dafne_torch")
 
 WRITE_PERIOD = 20
+# what a device-aug batch ships in place of "image" (engine/trainer.py::device_aug_image)
+DEVICE_AUG_KEYS = (("image_base", "aug_out_hw") + tuple("aug_" + k for k in WARP_KEYS)
+                   + ("color_light", "color_w"))
 
 
 def to_device(batch, device) -> Dict:
-    """The step's tensors of a loader batch, copied without blocking."""
-    return {k: batch[k].to(device, non_blocking=True) for k in ("image",) + GT_KEYS}
+    """The step's tensors of a loader batch, copied without blocking:
+    "image", or a device-aug batch's base images and vectors, and the gts."""
+    keys = ("image",) if "image" in batch else tuple(k for k in DEVICE_AUG_KEYS if k in batch)
+    return {k: batch[k].to(device, non_blocking=True) for k in keys + GT_KEYS}
 
 
 def setup_logging(output_dir=None):
@@ -178,9 +185,10 @@ def do_train(cfg, model, records: List[dict], resume: bool = False) -> Dict[str,
     optimizer, scheduler = build_optimizer(cfg, model)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     start_iter = checkpointer.resume_or_load(model, cfg, resume, optimizer, scheduler)
-    step = make_train_step(model, cfg, pad_hw, optimizer, scheduler)
     loader = DataLoader(cfg, records, batch_size, seed=max(cfg.SEED, 0), pad_hw=pad_hw,
-                        pin_memory=device.type == "cuda")
+                        pin_memory=device.type == "cuda", device_aug=resolve_train_device_aug(cfg))
+    logger.info(f"train augmentation rendered on the {'device' if loader.device_aug else 'host'}")
+    step = make_train_step(model, cfg, pad_hw, optimizer, scheduler, device_aug=loader.device_aug)
     writers = build_writers(cfg.OUTPUT_DIR, max_iter)
     model.train()
     batches = iter(loader)

@@ -13,7 +13,8 @@ Counterpart of ``dafne_tpu/ops/postprocess.py``:
 Every output has a fixed size and a validity mask.  Each top-k takes the
 same set and the same order as the JAX function (``ops/topk.py``), so the
 NMS sees its candidates in the same order and ties resolve alike.
-``DECODE_APPROX_TOPK`` is not ported.
+``TPU.DECODE_APPROX_TOPK`` (the JAX package's approximate top-k) is not
+ported: ``DecodeSpec.from_config`` raises when it is set.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ class DecodeSpec:
     ctr_in_score: bool = True
     sort_corners: bool = True
     stride_norm: bool = True
-    nms_max_candidates: int = 4096
+    nms_max_candidates: int = 2048
     nms_group_candidates: int = 0  # > 0: per-class-group NMS with this budget
     # (ops/nms.py::rotated_nms_grouped_batched); 0: the global-cap path
     class_merge: Tuple[Tuple[int, int], ...] = ((5, 4),)
@@ -49,6 +50,8 @@ class DecodeSpec:
     @classmethod
     def from_config(cls, cfg, train: bool = False) -> "DecodeSpec":
         """Decode settings of a config, at test time unless `train`."""
+        if cfg.TPU.DECODE_APPROX_TOPK:
+            raise NotImplementedError("TPU.DECODE_APPROX_TOPK (approximate top-k) is not ported")
         d = cfg.MODEL.DAFNE
         return cls(
             strides=tuple(d.FPN_STRIDES),

@@ -6,10 +6,11 @@
 Counterpart of ``tools/train.py``: the config from the file (reading YAML
 needs PyYAML; dotted overrides alone do not) and the dotted overrides, ``default_setup``, the model on the card, then either
 ``--eval-only`` (restore the newest checkpoint of OUTPUT_DIR, else
-MODEL.WEIGHTS, and run ``do_test``) or ``do_train`` over DATASETS.TRAIN
-followed by ``do_test``.  A failure writes its traceback to
-OUTPUT_DIR/error.txt.  One process on one device: no distributed launch and
-no TTA (TEST.AUG.ENABLED raises).
+MODEL.WEIGHTS, run ``do_test`` and, with TEST.AUG.ENABLED,
+``engine/tta.py::do_test_with_tta`` into results["tta"]) or ``do_train``
+over DATASETS.TRAIN followed by ``do_test``.  A failure writes its
+traceback to OUTPUT_DIR/error.txt.  One process on one device: no
+distributed launch.
 """
 
 from __future__ import annotations
@@ -49,26 +50,29 @@ def setup(args):
     return cfg
 
 
-def main(argv=None, device: str = "cuda", stats=None):
+def main(argv=None, device: str = "cuda", stats=None, tta_stats=None):
     """Run the CLI on `device` (the card unless a caller asks for "cpu").
-    Returns do_test's results; `stats` is passed to the final do_test."""
+    Returns do_test's results; `stats` is passed to the final do_test and
+    `tta_stats` to do_test_with_tta."""
     args = parse_args(argv)
     cfg = setup(args)
 
     from dafne_torch.data import get_dataset
     from dafne_torch.engine.checkpoint import Checkpointer
     from dafne_torch.engine.train_loop import default_setup, do_test, do_train
+    from dafne_torch.engine.tta import do_test_with_tta
     from dafne_torch.models import build_model
 
     try:
         default_setup(cfg)
-        if cfg.TEST.AUG.ENABLED:
-            raise NotImplementedError("TEST.AUG.ENABLED: test-time augmentation is not ported")
         model = build_model(cfg, device=device,
                             generator=torch.Generator().manual_seed(max(cfg.SEED, 0)))
         if args.eval_only:
             Checkpointer(cfg.OUTPUT_DIR).resume_or_load(model, cfg, resume=True)
-            return do_test(cfg, model, cfg.OUTPUT_DIR, stats=stats)
+            results = do_test(cfg, model, cfg.OUTPUT_DIR, stats=stats)
+            if cfg.TEST.AUG.ENABLED:
+                results["tta"] = do_test_with_tta(cfg, model, cfg.OUTPUT_DIR, stats=tta_stats)
+            return results
         records = []
         for name in cfg.DATASETS.TRAIN:
             records += get_dataset(name, cfg)

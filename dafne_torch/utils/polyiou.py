@@ -4,14 +4,20 @@ The port's own copy of ``dafne_tpu/utils/polyiou_np.py`` (the evaluator's
 polygon IoU), plus the dispatcher names of
 ``dafne_tpu/utils/polyiou.py`` that the port uses (``iou_poly_pairs``,
 ``poly_nms``) on this NumPy path; the JAX package's g++ build of
-``native/polyiou.cpp`` is not ported.
+``native/polyiou.cpp`` is not ported.  ``poly_nms`` (the TTA merge) walks
+the greedy order a block at a time over IoUs computed in batches, and keeps
+exactly what the one-pair-at-a-time loop ``poly_nms_plain`` keeps.
 
 Algorithm: Sutherland-Hodgman clipping of convex polygon P by each
 half-plane of convex polygon Q, in float64, an algorithm independent of the
 on-device clipped-edge-integral IoU (``geometry/iou.py``, the kernels).
 All pairs are processed at once with fixed-size (masked) vertex buffers:
-clipping a <= K-gon by one line gives a <= K+1-gon, so 4 clips of a quad
-fit in 8 vertices.
+clipping a convex <= K-gon by one line gives a <= K+1-gon, so 4 clips of a
+convex quad fit in 8 vertices.  A P that is not convex (a bowtie or a dart,
+which a model's raw corners can form) may emit more: such rows clip in a
+buffer of 32 vertices whose writes are capped, as ``native/polyiou.cpp``
+caps them, instead of overflowing; convex rows give the NumPy reference's
+values bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 _MAXV = 9  # 4 vertices + 4 clips; one spare slot for simpler scatter logic
+_MAXV_NONCONVEX = 16  # a non-convex P's clips (at most 12 seen), writes capped
 
 
 def _signed_area(pts, count):
@@ -49,8 +56,9 @@ def _clip_halfplane(pts, count, a, b):
     inside = (side >= 0.0) & valid
 
     nxt_idx = np.where(idx + 1 < count[:, None], idx + 1, 0)
-    nxt_pts = np.take_along_axis(pts, nxt_idx[:, :, None], axis=1)
-    nxt_side = np.take_along_axis(side, nxt_idx, axis=1)
+    rows = np.arange(n)[:, None]
+    nxt_pts = pts[rows, nxt_idx]
+    nxt_side = side[rows, nxt_idx]
     nxt_inside = (nxt_side >= 0.0) & valid
 
     # Edge crossing point (param t along current->next where side == 0)
@@ -67,20 +75,18 @@ def _clip_halfplane(pts, count, a, b):
     pos1 = np.cumsum(counts, axis=1) - counts  # position of first emission
     pos2 = pos1 + emit1.astype(np.int64)
     new_count = counts.sum(axis=1)
+    # a polygon that outgrows the buffer keeps its first k - 1 vertices (a
+    # convex one never does); the rest would index past the spare slot
+    emit1 = emit1 & (pos1 < k - 1)
+    emit2 = emit2 & (pos2 < k - 1)
 
+    # Scatter (positions are unique per row by construction); slots past a
+    # row's count stay zero
     out = np.zeros((n, k, 2), dtype=pts.dtype)
-    rows = np.arange(n)[:, None]
-    # Scatter (positions are unique per row by construction)
-    p1 = np.where(emit1, pos1, k - 1)  # dump disabled emissions into spare slot
-    np.put_along_axis(out, p1[:, :, None], np.where(emit1[:, :, None], pts, 0.0), axis=1)
-    tmp = np.zeros_like(out)
-    p2 = np.where(emit2, pos2, k - 1)
-    np.put_along_axis(tmp, p2[:, :, None], np.where(emit2[:, :, None], cross_pt, 0.0), axis=1)
-    # Merge: a slot receives from at most one of the two scatters unless both
-    # disabled slots collide at k-1; that spare slot is always >= new_count.
-    slot_from_2 = np.zeros((n, k), dtype=bool)
-    np.put_along_axis(slot_from_2, p2, emit2, axis=1)
-    out = np.where(slot_from_2[:, :, None], tmp, out)
+    r, c = np.nonzero(emit1)
+    out[r, pos1[r, c]] = pts[r, c]
+    r, c = np.nonzero(emit2)
+    out[r, pos2[r, c]] = cross_pt[r, c]
     return out, np.minimum(new_count, k - 1)
 
 
@@ -90,22 +96,40 @@ def _ensure_ccw(quads):
     return np.where(area[:, None, None] < 0.0, quads[:, ::-1, :], quads)
 
 
-def intersection_area(p, q):
-    """Exact intersection areas; p, q: [N, 8] float arrays -> [N]."""
-    p = np.asarray(p, dtype=np.float64).reshape(-1, 4, 2)
-    q = np.asarray(q, dtype=np.float64).reshape(-1, 4, 2)
-    n = p.shape[0]
-    p = _ensure_ccw(p)
-    q = _ensure_ccw(q)
+def _convex(quads):
+    """[N]: the quads [N, 4, 2] turn one way at every corner (collinear
+    corners allowed)."""
+    e = np.roll(quads, -1, axis=1) - quads
+    f = np.roll(e, -1, axis=1)
+    turn = e[:, :, 0] * f[:, :, 1] - e[:, :, 1] * f[:, :, 0]
+    return (turn >= 0.0).all(1) | (turn <= 0.0).all(1)
 
-    pts = np.zeros((n, _MAXV, 2), dtype=np.float64)
+
+def _clipped_area(p, q, k):
+    """|area| of each p [N, 4, 2] clipped by q's 4 half-planes in a k-vertex buffer."""
+    pts = np.zeros((len(p), k, 2), dtype=np.float64)
     pts[:, :4] = p
-    count = np.full(n, 4, dtype=np.int64)
+    count = np.full(len(p), 4, dtype=np.int64)
     for e in range(4):
         a = q[:, e]
         b = q[:, (e + 1) % 4]
         pts, count = _clip_halfplane(pts, count, a, b)
     return np.abs(_signed_area(pts, count))
+
+
+def intersection_area(p, q):
+    """Exact intersection areas; p, q: [N, 8] float arrays -> [N]."""
+    p = np.asarray(p, dtype=np.float64).reshape(-1, 4, 2)
+    q = np.asarray(q, dtype=np.float64).reshape(-1, 4, 2)
+    p = _ensure_ccw(p)
+    q = _ensure_ccw(q)
+    convex = _convex(p)
+    if convex.all():
+        return _clipped_area(p, q, _MAXV)
+    out = np.empty(len(p), dtype=np.float64)
+    out[convex] = _clipped_area(p[convex], q[convex], _MAXV)
+    out[~convex] = _clipped_area(p[~convex], q[~convex], _MAXV_NONCONVEX)
+    return out
 
 
 def iou_poly(p, q):
@@ -144,9 +168,67 @@ def iou_poly_pairs(p, q) -> np.ndarray:
     return iou_pairs(np.ascontiguousarray(p, np.float64), np.ascontiguousarray(q, np.float64))
 
 
+NMS_BLOCK = 256  # candidates per block of poly_nms's greedy walk
+
+
+def _hboxes(boxes):
+    return np.stack([boxes[:, 0::2].min(1), boxes[:, 1::2].min(1),
+                     boxes[:, 0::2].max(1), boxes[:, 1::2].max(1)], axis=1)
+
+
+def _hbox_overlap(a, b):
+    """[len(a), len(b)]: hboxes not separated, the loop's prefilter (a NaN
+    coordinate separates nothing)."""
+    return ~((a[:, None, 0] > b[None, :, 2]) | (b[None, :, 0] > a[:, None, 2])
+             | (a[:, None, 1] > b[None, :, 3]) | (b[None, :, 1] > a[:, None, 3]))
+
+
 def poly_nms(boxes, scores, thresh: float) -> np.ndarray:
     """Greedy rotated NMS over one class group with an axis-aligned
-    prefilter; returns keep [N] bool (py_cpu_nms_poly_fast semantics)."""
+    prefilter; returns keep [N] bool, equal to ``poly_nms_plain``'s.
+
+    Candidates go in score order (stable), NMS_BLOCK at a time: a block's
+    rows are first tested against every box kept before the block, then
+    among themselves, each pair whose hboxes overlap through one batched
+    ``iou_pairs`` (later box first, as the loop calls ``iou_poly``: the
+    same float64 arithmetic per pair), and the greedy walk runs over the
+    block's boolean suppression matrix."""
+    boxes = np.ascontiguousarray(boxes, np.float64)
+    scores = np.ascontiguousarray(scores, np.float64)
+    n = len(boxes)
+    keep = np.zeros(n, bool)
+    if n == 0:
+        return keep
+    order = np.argsort(-scores, kind="stable")
+    b = boxes[order]
+    hb = _hboxes(b)
+    kept = np.zeros(0, np.int64)  # positions in score order
+    for start in range(0, n, NMS_BLOCK):
+        rows = np.arange(start, min(start + NMS_BLOCK, n))
+        suppressed = np.zeros(len(rows), bool)
+        if len(kept):
+            ii, jj = np.nonzero(_hbox_overlap(hb[rows], hb[kept]))
+            if len(ii):
+                hit = iou_pairs(b[rows[ii]], b[kept[jj]]) > thresh
+                suppressed[ii[hit]] = True
+        live = rows[~suppressed]
+        ii, jj = np.nonzero(np.tril(_hbox_overlap(hb[live], hb[live]), -1))
+        s = np.zeros((len(live), len(live)), bool)  # s[i, j]: j < i suppresses i
+        if len(ii):
+            s[ii, jj] = iou_pairs(b[live[ii]], b[live[jj]]) > thresh
+        alive = np.ones(len(live), bool)
+        for t in range(len(live)):
+            if alive[t]:
+                alive[t + 1:] &= ~s[t + 1:, t]
+        kept = np.concatenate([kept, live[alive]])
+    keep[order[kept]] = True
+    return keep
+
+
+def poly_nms_plain(boxes, scores, thresh: float) -> np.ndarray:
+    """``poly_nms`` one pair at a time, the plain reference: each candidate
+    in score order against each kept box whose hbox overlaps
+    (py_cpu_nms_poly_fast semantics)."""
     boxes = np.ascontiguousarray(boxes, np.float64)
     scores = np.ascontiguousarray(scores, np.float64)
     n = len(boxes)

@@ -1,4 +1,5 @@
-"""Port's config copy vs the JAX package's, and the port's import rule."""
+"""Port's config copy vs the JAX package's, the port's import rule, and
+the config keys the port refuses rather than ignores."""
 
 import os
 import pkgutil
@@ -8,9 +9,13 @@ import sys
 import pytest
 
 from dafne_tpu.config import get_cfg as jax_get_cfg
+from dafne_tpu.ops.postprocess import DecodeSpec as JaxDecodeSpec
 
 import dafne_torch
 from dafne_torch.config import get_cfg
+from dafne_torch.engine.inference import make_eval_step
+from dafne_torch.models import build_model
+from dafne_torch.ops.postprocess import DecodeSpec
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -71,5 +76,36 @@ def test_port_imports_nothing_of_jax():
     for m in ("dafne_torch.ops.kernels.assign", "dafne_torch.engine.train_loop",
               "dafne_torch.data.loader", "dafne_torch.tools.train", "dafne_torch.engine.checkpoint",
               "dafne_torch.evaluation.evaluator", "dafne_torch.evaluation.voc_eval",
-              "dafne_torch.data.registry", "dafne_torch.utils.polyiou"):
+              "dafne_torch.data.registry", "dafne_torch.utils.polyiou",
+              "dafne_torch.ops.device_warp", "dafne_torch.engine.tta"):
         assert m in modules
+
+
+def test_slice_keys_have_the_jax_defaults():
+    leaves = dict(_leaves(get_cfg()))
+    for key in ("TEST.AUG.MIN_SIZES", "TEST.AUG.MAX_SIZE", "TEST.AUG.FLIP", "TEST.AUG.HFLIP",
+                "TEST.AUG.VFLIP", "TEST.AUG.ROTATION_ANGLES", "TPU.TTA_DEVICE_AUG",
+                "TPU.TRAIN_DEVICE_AUG", "TPU.EVAL_INT8", "TPU.EVAL_INT8_SCALES",
+                "TPU.EVAL_INT8_MIN_CHANNELS", "TPU.DECODE_APPROX_TOPK"):
+        assert key in leaves, key  # equal to JAX's: test_every_port_default_equals_jax_default
+
+
+def test_eval_int8_raises():
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.RESNETS.STEM_OUT_CHANNELS", "8", "MODEL.RESNETS.WIDTH_PER_GROUP",
+                         "4", "MODEL.RESNETS.RES2_OUT_CHANNELS", "16", "MODEL.FPN.OUT_CHANNELS",
+                         "16", "TPU.COMPUTE_DTYPE", "float32"])
+    model = build_model(cfg, device="cpu")
+    make_eval_step(model, cfg, (128, 128))  # bf16/f32 scoring builds
+    cfg.TPU.EVAL_INT8 = True
+    with pytest.raises(NotImplementedError, match="EVAL_INT8"):
+        make_eval_step(model, cfg, (128, 128))
+
+
+def test_decode_approx_topk_raises_and_bare_spec_default():
+    cfg = get_cfg()
+    assert DecodeSpec.from_config(cfg).nms_max_candidates == cfg.TPU.NMS_MAX_CANDIDATES
+    cfg.TPU.DECODE_APPROX_TOPK = True
+    with pytest.raises(NotImplementedError, match="DECODE_APPROX_TOPK"):
+        DecodeSpec.from_config(cfg)
+    assert DecodeSpec().nms_max_candidates == JaxDecodeSpec().nms_max_candidates == 2048

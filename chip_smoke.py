@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase's failure is caught):
-  1. the card, and an nvcc build of dafne_torch/csrc/*.cu for sm_90a;
+  1. the card, and an nvcc build of dafne_torch/csrc/*.cu for sm_90a (and a
+     g++ build of the host library csrc/png_unfilter.cpp);
   2. the suppression-matrix kernel (K1, S as bit rows) against its plain
      PyTorch version, packed, at N = 4096, batch 8, on a dense all-valid
      15-class mix and a 25%-valid class-major mix: bit rows equal word for
@@ -94,11 +95,32 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      augmentation on the host and on the card in turns (host, device,
      device, host), K3 once per step, step ms of each; a few steps with
      the color jitter on the card.
+ 15. datasets on disk, at the DOTA-1.0 1024 recipe's full width: a DOTA-1.0
+     tree in the devkit's layout (16 train and N_FILE_VAL val 1024^2 PNG
+     tiles with annotations and planted objects the loader must skip, 8
+     unlabeled test tiles cut from 2 originals at stride 824, a DOTA-1.5
+     json with container-cranes; rows filtered with each of the five PNG
+     filters, one gray, one RGBA and one palette tile) under DAFNE_DATA_DIR;
+     every tile decoded bit for bit to the array written, the unfilter
+     library equal to its plain version, host ms per tile (read, inflate,
+     unfilter); the records' kept and dropped objects as planted; a
+     Detectron2 .pth of the whole model and an MSRA R-50.pkl imported (the
+     .pth fills every tensor equal to the file, the .pkl exactly the
+     backbone); the CLI from the .pkl: FILE_STEPS train steps on
+     dota_1_train_1024 (K3 once per step, finite losses, a checkpoint) and
+     do_test on dota_1_val_1024 (K1 and greedy once per batch, an mAP, the
+     Task1 files); the CLI's --eval-only from the .pth on the unlabeled
+     dota_1_test_1024: task1/, task1_merged/ and submission.zip, every
+     merged file equal to poly_nms_plain's keep-set on the shifted and
+     rescaled tile detections, host seconds of the loop, merge and zip;
+     then FILE_AB_STEPS-step do_train runs from the files and from the same
+     records with in-memory images in turns (files, memory, memory, files),
+     and one batch's host mapping (map_ms) from each.
 
 The line before the last holds one JSON object with every kernel's numbers
-(K1's and greedy's launches from phases 4, 11's CLI run and 13's TTA run,
-K3's from phases 7 and 14, K2's from phase 11's replay; "launches_by_path"
-splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
+(K1's and greedy's launches from phases 4, 11's CLI run, 13's TTA run and
+15's two CLI runs, K3's from phases 7, 14 and 15's CLI run, K2's from phase
+11's replay; "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
 which hold the wrapper's host time when the card waits for the launch;
@@ -113,11 +135,16 @@ import dataclasses
 import json
 import logging
 import os
+import pickle
+import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zipfile
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -164,6 +191,9 @@ N_TTA_SCENES = 4  # scenes through the TTA CLI
 TTA_MIN_SIZES, TTA_MAX_SIZE = "(256, 512, 756, 1024, 1536)", 1536
 WARP_TOL = 1e-3  # rendered TTA copies against the CPU, 0-255 scale
 DA_STEPS = 10  # timed steps per run of the device-aug against host-aug comparison
+N_FILE_VAL = 32  # val tiles of the DOTA tree on disk (train: the N_TRAIN_SCENES scenes)
+FILE_STEPS = 4  # train steps of the CLI run from files
+FILE_AB_STEPS = 20  # timed steps per run of the files against in-memory comparison
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -493,6 +523,262 @@ def gt_tensors(examples, device):
     return {k: torch.from_numpy(np.stack([e[k] for e in examples])).to(device) for k in GT_KEYS}
 
 
+# ---- 15. helpers: PNG files, a DOTA tree and Detectron2 checkpoints ----------
+
+DOTA_10_CLASSES = [  # the DOTA-1.0 categories, in the devkit's id order
+    "plane", "baseball-diamond", "bridge", "ground-track-field", "small-vehicle",
+    "large-vehicle", "ship", "tennis-court", "basketball-court", "storage-tank",
+    "soccer-ball-field", "roundabout", "harbor", "swimming-pool", "helicopter",
+]
+DOTA_STRIDE = 824  # the devkit's 1024^2 tiles with a 200-pixel gap
+
+
+def _paeth_predictor(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def write_png(path, samples, color_type, palette=None, filters=(0, 1, 2, 3, 4)):
+    """Write uint8 samples [H, W, C] as an 8-bit PNG of `color_type` (0
+    gray, 2 RGB, 3 palette indices with `palette` [n, 3] RGB, 4 gray+alpha,
+    6 RGBA); row y is filtered with filters[y % len(filters)] (0 None, 1
+    Sub, 2 Up, 3 Average, 4 Paeth) and the stream split over IDAT chunks of
+    64 KiB."""
+    h, w, c = samples.shape
+    x = samples.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), x[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+    preds = [0, left, up, (left + up) >> 1, _paeth_predictor(left, up, upleft)]
+    kinds = np.asarray(filters)[np.arange(h) % len(filters)]
+    rows = np.empty((h, w * c + 1), np.uint8)
+    rows[:, 0] = kinds
+    for f in set(kinds.tolist()):
+        sel = kinds == f
+        rows[sel, 1:] = ((x - preds[f])[sel] if f else x[sel]) & 0xFF
+    stream = zlib.compress(rows.tobytes(), 6)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    out = [b"\x89PNG\r\n\x1a\n", chunk(b"IHDR", ihdr)]
+    if palette is not None:
+        out.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    out += [chunk(b"IDAT", stream[i:i + 65536]) for i in range(0, len(stream), 65536)]
+    out.append(chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def write_tile(path, bgr, kind, rng, filters=(0, 1, 2, 3, 4)):
+    """Write a BGR image as a PNG of `kind` ("rgb", "gray", "rgba" or
+    "palette"), rows filtered as `filters` says; returns the BGR array that
+    reading it back must give."""
+    rgb = bgr[:, :, ::-1]
+    if kind == "gray":
+        gray = bgr.mean(axis=2).astype(np.uint8)
+        write_png(path, gray[:, :, None], 0, filters=filters)
+        return np.repeat(gray[:, :, None], 3, axis=2)
+    if kind == "rgba":
+        alpha = rng.randint(0, 256, bgr.shape[:2] + (1,)).astype(np.uint8)
+        write_png(path, np.concatenate([rgb, alpha], axis=2), 6, filters=filters)
+        return bgr.copy()
+    if kind == "palette":  # a 3-3-2 palette of 256 colors
+        i = np.arange(256)
+        palette = np.stack([(i >> 5) * 36, ((i >> 2) & 7) * 36, (i & 3) * 85], 1).astype(np.uint8)
+        idx = (rgb[:, :, 0] >> 5 << 5) | (rgb[:, :, 1] >> 5 << 2) | (rgb[:, :, 2] >> 6)
+        write_png(path, idx[:, :, None].astype(np.uint8), 3, palette=palette, filters=filters)
+        return np.ascontiguousarray(palette[idx][:, :, ::-1])
+    write_png(path, np.ascontiguousarray(rgb), 2, filters=filters)
+    return bgr.copy()
+
+
+def _coco_annotation(ann_id, image_id, category_id, seg, area=None, bbox=None):
+    xs, ys = seg[0::2], seg[1::2]
+    x0, y0 = float(min(xs)), float(min(ys))
+    bbox = bbox or [x0, y0, float(max(xs)) - x0, float(max(ys)) - y0]
+    return {"id": ann_id, "image_id": image_id, "category_id": category_id, "iscrowd": 0,
+            "bbox": bbox, "area": float(bbox[2] * bbox[3] if area is None else area),
+            "segmentation": [[float(v) for v in seg]]}
+
+
+def planted_drops(ann_id, image_id, size):
+    """One annotation each that the DOTA loader must skip: area <= MIN_AREA
+    (10), both sides below MIN_SIDE (2, with a large stated area), a
+    degenerate quad (two corners within 1e-2) and a 6-value polygon."""
+    c = size / 2
+    return [
+        _coco_annotation(ann_id, image_id, 1, [c, c, c + 3, c, c + 3, c + 3, c, c + 3]),
+        _coco_annotation(ann_id + 1, image_id, 2, [c, c, c + 1.5, c, c + 1.5, c + 1.5, c, c + 1.5],
+                         area=50.0),
+        _coco_annotation(ann_id + 2, image_id, 3, [c, c, c + 0.004, c, c + 30, c + 30, c, c + 30]),
+        _coco_annotation(ann_id + 3, image_id, 4, [c, c, c + 40, c, c + 20, c + 30]),
+    ]
+
+
+def write_dota_tree(root, train, val, originals, size, stride, rng, tag="1024"):
+    """Write a DOTA tree in the devkit's split layout under `root`:
+    dota_1_split/{train,val,test}<tag>/DOTA1_<split><tag>.json and
+    images/*.png, of size^2 tiles.  `train` and `val` are records (a BGR "image" of size^2,
+    "annotations" with "corners" and "category_id" 0-14), written as tiles
+    P<n>__1__0___0 with their annotations and, on the first two tiles of
+    each, the ``planted_drops``; `originals` are BGR images cut into size^2
+    test tiles at `stride` (named as the devkit names them), with no
+    annotations.  The first train tile is written gray, the second RGBA and
+    the first val tile paletted; the rest RGB.  Also a DOTA-1.5 json over
+    the first two train tiles that adds a container-crane to each.
+    Returns {"expected": {png path: BGR array}, "counts": {split: (kept,
+    dropped)}, "crane": (scene objects, cranes) of the 1.5 json}."""
+    categories = [{"id": i + 1, "name": c} for i, c in enumerate(DOTA_10_CLASSES)]
+    expected, counts = {}, {}
+    ann_id = 1
+    jsons = {}
+    for split, items in (("train", train), ("val", val), ("test", None)):
+        d = os.path.join(root, "dota_1_split", f"{split}{tag}")
+        os.makedirs(os.path.join(d, "images"), exist_ok=True)
+        images, annotations, kept, dropped = [], [], 0, 0
+        if items is None:  # test tiles of the originals
+            tiles = []
+            for n, img in enumerate(originals):
+                for y in range(0, img.shape[0] - size + 1, stride):
+                    for x in range(0, img.shape[1] - size + 1, stride):
+                        tiles.append((f"P{n + 1:04d}__1__{x}___{y}",
+                                      img[y:y + size, x:x + size], []))
+        else:
+            tiles = [(f"P{n + 1:04d}__1__0___0", r["image"], r["annotations"])
+                     for n, r in enumerate(items)]
+        for i, (stem, img, annos) in enumerate(tiles):
+            kind = {("train", 0): "gray", ("train", 1): "rgba", ("val", 0): "palette"}.get(
+                (split, i), "rgb")
+            path = os.path.join(d, "images", f"{stem}.png")
+            expected[path] = write_tile(path, np.ascontiguousarray(img), kind, rng)
+            images.append({"id": i + 1, "file_name": f"{stem}.png", "height": size, "width": size})
+            for a in annos:
+                annotations.append(_coco_annotation(ann_id, i + 1, a["category_id"] + 1,
+                                                    a["corners"]))
+                ann_id += 1
+            kept += len(annos)
+            if items is not None and i < 2:
+                drops = planted_drops(ann_id, i + 1, size)
+                annotations += drops
+                ann_id += len(drops)
+                dropped += len(drops)
+        doc = {"images": images, "categories": categories}
+        if items is not None:
+            doc["annotations"] = annotations
+        jsons[split] = doc
+        with open(os.path.join(d, f"DOTA1_{split}{tag}.json"), "w") as f:
+            json.dump(doc, f)
+        counts[split] = (kept, dropped)
+    # DOTA-1.5: the first two train tiles, each with a container-crane added
+    d15 = os.path.join(root, "dota_1_5_split", f"train{tag}")
+    os.makedirs(d15, exist_ok=True)
+    os.symlink(os.path.join(root, "dota_1_split", f"train{tag}", "images"),
+               os.path.join(d15, "images"))
+    doc = {"images": jsons["train"]["images"][:2],
+           "categories": categories + [{"id": 16, "name": "container-crane"}],
+           "annotations": [a for a in jsons["train"]["annotations"] if a["image_id"] <= 2]}
+    scene = sum(len(a["annotations"]) for a in train[:2])
+    for i in (1, 2):
+        c = size / 4
+        doc["annotations"].append(_coco_annotation(
+            ann_id, i, 16, [c, c, c + 40, c, c + 40, c + 25, c, c + 25]))
+        ann_id += 1
+    with open(os.path.join(d15, f"DOTA1_5_train{tag}.json"), "w") as f:
+        json.dump(doc, f)
+    return {"expected": expected, "counts": counts, "crane": (scene, 2)}
+
+
+def d2_name(name):
+    """The port's state-dict name -> its name in a Detectron2 DAFNe
+    checkpoint (``head.scales`` is one ``scales.<level>.scale`` per level)."""
+    rules = [
+        (r"backbone\.stem_conv1(_norm)?\.(\w+)$",
+         lambda m: f"backbone.bottom_up.stem.conv1.{'norm.' if m[1] else ''}{m[2]}"),
+        (r"backbone\.res(\d)_(\d+)\.(conv\d|shortcut)(_norm)?\.(\w+)$",
+         lambda m: f"backbone.bottom_up.res{m[1]}.{m[2]}.{m[3]}.{'norm.' if m[4] else ''}{m[5]}"),
+        (r"fpn\.lateral_res(\d)\.(\w+)$", lambda m: f"backbone.fpn_lateral{m[1]}.{m[2]}"),
+        (r"fpn\.output_p(\d)\.(\w+)$", lambda m: f"backbone.fpn_output{m[1]}.{m[2]}"),
+        (r"fpn\.p(\d)\.(\w+)$", lambda m: f"backbone.top_block.p{m[1]}.{m[2]}"),
+        (r"head\.(\w+)_tower\.(conv|norm)(\d+)\.(\w+)$",
+         lambda m: f"proposal_generator.dafne_head.{m[1]}_tower."
+                   f"{3 * int(m[3]) + (m[2] == 'norm')}.{m[4]}"),
+        (r"head\.(\w+)\.(weight|bias)$", lambda m: f"proposal_generator.dafne_head.{m[1]}.{m[2]}"),
+    ]
+    for pattern, fmt in rules:
+        m = re.match(pattern, name)
+        if m:
+            return fmt(m)
+    raise KeyError(name)
+
+
+def c2_name(name):
+    """The port's backbone name -> its name in an MSRA ImageNet pickle
+    (``R-50.pkl``); None for what the pickle does not hold (the FrozenBN
+    statistics, mean 0 and variance 1, and everything past the backbone)."""
+    branch = {"conv1": "branch2a", "conv2": "branch2b", "conv3": "branch2c", "shortcut": "branch1"}
+    suffix = {"weight": "_w", "norm.weight": "_bn_s", "norm.bias": "_bn_b"}
+    m = re.match(r"backbone\.stem_conv1(_norm)?\.(weight|bias)$", name)
+    if m:
+        return {("", "weight"): "conv1_w", ("_norm", "weight"): "res_conv1_bn_s",
+                ("_norm", "bias"): "res_conv1_bn_b"}.get((m[1] or "", m[2]))
+    m = re.match(r"backbone\.res(\d)_(\d+)\.(conv\d|shortcut)(_norm)?\.(weight|bias)$", name)
+    if m:
+        leaf = ("norm." if m[4] else "") + m[5]
+        return f"res{m[1]}_{m[2]}_{branch[m[3]]}{suffix[leaf]}" if leaf in suffix else None
+    return None
+
+
+def reference_values(state_dict, rng):
+    """Random values for every entry of a port state dict: He-scaled conv
+    weights, FrozenBN and GN affines near 1 and 0, positive variances, the
+    per-level scales 1.0-1.4 and a class bias of -2 (so NMS inputs fill)."""
+    values = {}
+    for name, t in state_dict.items():
+        shape = tuple(t.shape)
+        if len(shape) == 4:
+            v = rng.randn(*shape) * np.sqrt(2.0 / (shape[1] * shape[2] * shape[3]))
+        elif name.endswith("running_var"):
+            v = rng.rand(*shape) + 0.5
+        elif name == "head.scales":
+            v = 1.0 + 0.1 * np.arange(shape[0])
+        elif name == "head.cls_logits.bias":
+            v = np.full(shape, -2.0)
+        elif re.search(r"norm\d*\.weight$", name):
+            v = rng.rand(*shape) * 0.5 + 0.75
+        else:
+            v = rng.randn(*shape) * 0.05
+        values[name] = v.astype(np.float32)
+    return values
+
+
+def write_reference_checkpoints(values, out_dir):
+    """A Detectron2 DAFNe ``.pth`` of every value (torch tensors under the
+    Detectron2 names, with the pixel buffers a real checkpoint holds) and an
+    MSRA-style ``R-50.pkl`` of the backbone's (numpy, Caffe2 names, with the
+    classifier the importer skips).  Returns (pkl path, pth path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    model = {"pixel_mean": torch.tensor([103.53, 116.28, 123.675]), "pixel_std": torch.ones(3)}
+    for name, v in values.items():
+        if name == "head.scales":
+            for lvl, s in enumerate(v):
+                model[f"proposal_generator.dafne_head.scales.{lvl}.scale"] = torch.tensor([s])
+        else:
+            model[d2_name(name)] = torch.from_numpy(v)
+    pth = os.path.join(out_dir, "model_final.pth")
+    torch.save({"model": model, "iteration": 90000}, pth)
+    blobs = {c2_name(n): v for n, v in values.items() if c2_name(n)}
+    blobs["fc1000_w"] = np.zeros((1000, 2048), np.float32)
+    blobs["fc1000_b"] = np.zeros(1000, np.float32)
+    pkl = os.path.join(out_dir, "R-50.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(blobs, f)
+    return pkl, pth
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
@@ -501,6 +787,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from dafne_torch.config import get_cfg
     from dafne_torch.data import get_dataset, register_all_datasets
+    from dafne_torch.data import image_io as IO
     from dafne_torch.data.loader import DataLoader
     from dafne_torch.data.mapper import DatasetMapper
     from dafne_torch.data.synthetic import GEN_CLASSES, load_synthetic_gen
@@ -525,6 +812,9 @@ def main() -> int:
     from dafne_torch.ops.kernels import quad_nms as K
     from dafne_torch.ops.losses import LossSpec, dafne_losses
     from dafne_torch.evaluation import build_evaluator
+    from dafne_torch.evaluation.result_merge import parse_tile_id
+    from dafne_torch.utils import weight_import as W
+    from dafne_torch.utils.polyiou import poly_nms_plain
     from dafne_torch.ops.nms import (
         grouped_nms_inputs,
         rotated_nms_grouped_batched,
@@ -550,11 +840,11 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ("quad_nms", "assign")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+    sources = ("quad_nms", "assign", "png_unfilter")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one compiler per source, all at once
         build_logs = dict(zip(sources, pool.map(kbuild.build, sources)))
-    log(f"[build] nvcc sm_90a {', '.join(f'{n}.cu' for n in sources)} in parallel: "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu and g++ png_unfilter.cpp (the host "
+        f"unfilter of phase 15) in parallel: {time.perf_counter() - t0:.1f} s")
     for name, build_log in build_logs.items():
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -975,6 +1265,7 @@ def main() -> int:
     if missing or len(st["preds"]) != len(records) or st["images"] != len(records):
         raise SystemExit(f"the eval CLI did not write {missing} or missed images")
     n_img, loop_s, evaluate_s = st["images"], st["loop_s"], st["evaluate_s"]
+    phase11_img_s = n_img / loop_s
     log(f"[eval] CLI --eval-only on {n_img} scenes in {cli_s:.2f} s wall (model build, checkpoint "
         f"restore, data, eval, files): do_test loop (map, model, decode, fetch) {loop_s:.3f} s = "
         f"{n_img / loop_s:.2f} img/s; evaluate() {evaluate_s:.3f} s = {n_img / evaluate_s:.2f} "
@@ -1349,28 +1640,265 @@ def main() -> int:
     del damodel
     torch.cuda.empty_cache()
 
+    # ---- 15. datasets on disk: the DOTA-1.0 1024 recipe through the CLI ------
+    files_dir = os.path.join(ROOT, "output", "chip_smoke_files")
+    shutil.rmtree(files_dir, ignore_errors=True)
+    data_dir = os.path.join(files_dir, "data")
+    os.environ["DAFNE_DATA_DIR"] = data_dir  # read when the CLI registers the datasets
+    t0 = time.perf_counter()
+    val_scenes = load_synthetic_gen("val", N_FILE_VAL, hw=CANVAS, max_boxes=96)
+    originals = [r["image"] for r in load_synthetic_gen("test", 2, hw=CANVAS + DOTA_STRIDE,
+                                                        max_boxes=96)]
+    tree = write_dota_tree(data_dir, train_records, val_scenes, originals, CANVAS, DOTA_STRIDE,
+                           np.random.RandomState(15))
+    log(f"[files] DOTA-1.0 tree of {len(tree['expected'])} {CANVAS}x{CANVAS} PNG tiles "
+        f"({len(train_records)} train, {N_FILE_VAL} val, 8 test from 2 originals of "
+        f"{CANVAS + DOTA_STRIDE}^2 at stride {DOTA_STRIDE}; rows filtered None, Sub, Up, Average, "
+        f"Paeth in turn; one gray, one RGBA, one palette tile) written in "
+        f"{time.perf_counter() - t0:.1f} s (host set-up)")
+
+    # every tile decodes to the array written; the library equals its plain version
+    parts = {"read_image": [], "inflate": [], "unfilter": []}
+    for path, want in tree["expected"].items():
+        t0 = time.perf_counter()
+        got = IO.read_image(path)
+        parts["read_image"].append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got, want):
+            raise SystemExit(f"{path} did not decode to the array written")
+        with open(path, "rb") as f:
+            header, _, idat = IO.png_chunks(path, f.read())
+        t0 = time.perf_counter()
+        raw = IO.inflate(path, idat, header)
+        t1 = time.perf_counter()
+        rows = IO.unfilter(raw, header.height, header.rowbytes, header.bpp)
+        t2 = time.perf_counter()
+        parts["inflate"].append((t1 - t0) * 1e3)
+        parts["unfilter"].append((t2 - t1) * 1e3)
+        if not np.array_equal(rows, IO.unfilter_plain(raw, header.height, header.rowbytes,
+                                                     header.bpp)):
+            raise SystemExit(f"{path}: the unfilter library differs from its plain version")
+    decode_ms = {k: statistics.median(v) for k, v in parts.items()}
+    log(f"[files] {len(parts['read_image'])} tiles decoded bit for bit to the arrays written; "
+        f"the unfilter library equal to its plain version on each; host ms per tile, median: "
+        f"read_image {decode_ms['read_image']:.3f} (range {min(parts['read_image']):.3f}-"
+        f"{max(parts['read_image']):.3f}), of which inflate {decode_ms['inflate']:.3f} and "
+        f"unfilter {decode_ms['unfilter']:.3f}")
+
+    # records: the planted skips and the container-crane switch
+    fcfg = get_cfg()
+    fcfg.merge_from_list(DOTA_1024)
+    for remove in (True, False):  # registered last with the default, as the CLI registers it
+        fcfg.DATASETS.DOTA_REMOVE_CONTAINER_CRANE = remove
+        register_all_datasets(fcfg)
+        labels = [a["category_id"] for r in get_dataset("dota_1_5_train_1024")
+                  for a in r["annotations"]]
+        scene, cranes = tree["crane"]
+        if len(labels) != scene + (0 if remove else cranes) or labels.count(15) != (
+                0 if remove else cranes):
+            raise SystemExit(f"DOTA-1.5 container-crane (removed {remove}): {len(labels)} objects")
+    counts = {}
+    for split in ("train", "val", "test"):
+        recs = get_dataset(f"dota_1_{split}_1024")
+        with open(os.path.join(data_dir, "dota_1_split", f"{split}1024",
+                               f"DOTA1_{split}1024.json")) as f:
+            in_json = len(json.load(f).get("annotations", []))
+        kept = sum(len(r["annotations"]) for r in recs)
+        counts[split] = (kept, in_json - kept)
+    if counts != tree["counts"]:
+        raise SystemExit(f"records kept / dropped {counts}, planted {tree['counts']}")
+    log(f"[files] records (objects kept, dropped) per split {counts}, as planted (area <= 10, "
+        f"sides < 2, a degenerate quad, a 6-value polygon); DOTA-1.5 container-cranes kept and "
+        f"removed as DATASETS.DOTA_REMOVE_CONTAINER_CRANE says")
+
+    # weights: a Detectron2 .pth of the whole model and an MSRA R-50.pkl
+    wmodel = build_model(fcfg, device="cuda", generator=torch.Generator().manual_seed(15))
+    values = reference_values(wmodel.state_dict(), np.random.RandomState(16))
+    pkl, pth = write_reference_checkpoints(values, os.path.join(files_dir, "weights"))
+    report = W.load_reference_weights(pth, wmodel)
+    got = {k: v.cpu() for k, v in wmodel.state_dict().items()}
+    if report.unfilled or report.unmatched or set(got) != set(values) or not all(
+            torch.equal(got[k], torch.from_numpy(v)) for k, v in values.items()):
+        raise SystemExit(f"the .pth import: unfilled {report.unfilled[:5]}, unmatched "
+                         f"{report.unmatched[:5]}, or a tensor differs from the file")
+    wmodel = build_model(fcfg, device="cuda", generator=torch.Generator().manual_seed(17))
+    init = {k: v.cpu() for k, v in wmodel.state_dict().items()}
+    report = W.load_reference_weights(pkl, wmodel)
+    got = {k: v.cpu() for k, v in wmodel.state_dict().items()}
+    backbone = {k for k in got if k.startswith("backbone.") and "running_" not in k}
+    if report.filled != backbone or report.unmatched or not all(
+            torch.equal(got[k], torch.from_numpy(values[k]) if k in backbone else init[k])
+            for k in got):
+        raise SystemExit("the R-50.pkl import did not fill exactly the backbone")
+    log(f"[files] weights: the Detectron2 .pth filled all {len(values)} tensors, each equal to "
+        f"the file; the MSRA R-50.pkl filled the backbone's {len(backbone)} (convs, FrozenBN "
+        f"scales and biases; the statistics stay mean 0, variance 1) and nothing else")
+    del wmodel, init, got, values
+    torch.cuda.empty_cache()
+
+    # train from files through the CLI, then evaluate on the val split
+    file_args = DOTA_1024 + [
+        "INPUT.MIN_SIZE_TEST", str(CANVAS), "TPU.EVAL_BATCH", str(b),
+        "TPU.NMS_GROUP_CANDIDATES", str(GROUP_K)]
+    train_dir = os.path.join(files_dir, "train")
+    A.reset_launch_counts()
+    K.reset_launch_counts()
+    IO.reset_launch_counts()
+    val_stats = {}
+    t0 = time.perf_counter()
+    results = cli_main(file_args + [
+        "MODEL.WEIGHTS", pkl, "DATASETS.TRAIN", "('dota_1_train_1024',)",
+        "DATASETS.TEST", "('dota_1_val_1024',)", "SOLVER.MAX_ITER", str(FILE_STEPS),
+        "TEST.EVAL_PERIOD", str(FILE_STEPS), "OUTPUT_DIR", train_dir], stats=val_stats)
+    cli_s = time.perf_counter() - t0
+    files_launches = {"assign_argmin": A.assign_argmin_cuda.launches,
+                      "suppression_matrix": K.suppression_bits_cuda.launches,
+                      "greedy_keep": K.greedy_keep_bits_cuda.launches}
+    unfilter_calls = IO.unfilter.launches
+    with open(os.path.join(train_dir, "metrics.json")) as f:
+        written = [json.loads(line) for line in f]
+    tmodel_ok = os.path.exists(os.path.join(train_dir, "checkpoints",
+                                            f"model_{FILE_STEPS:07d}.pth"))
+    val_map = results["dota_1_val_1024"].get("mAP")
+    task1 = os.path.join(train_dir, "inference", "dota_1_val_1024", "task1")
+    n_val_batches = -(-N_FILE_VAL // b)
+    if (files_launches["assign_argmin"] != FILE_STEPS
+            or files_launches["suppression_matrix"] != n_val_batches
+            or files_launches["greedy_keep"] != n_val_batches):
+        raise SystemExit(f"train from files: launches {files_launches} for {FILE_STEPS} steps "
+                         f"and {n_val_batches} eval batch")
+    if not written or not all(np.isfinite(v) for line in written for k, v in line.items()
+                              if k.startswith("loss/")):
+        raise SystemExit(f"train from files: losses {written}")
+    if not tmodel_ok or not isinstance(val_map, float) or not np.isfinite(val_map) or sorted(
+            os.listdir(task1)) != sorted(f"Task1_{c}.txt" for c in DOTA_10_CLASSES):
+        raise SystemExit(f"train from files: checkpoint {tmodel_ok}, val mAP {val_map}, "
+                         f"task1 files {os.listdir(task1) if os.path.isdir(task1) else None}")
+    vst = val_stats["dota_1_val_1024"]
+    files_img_s = vst["images"] / vst["loop_s"]
+    log(f"[files] CLI: MODEL.WEIGHTS R-50.pkl, {FILE_STEPS} steps on dota_1_train_1024 and "
+        f"do_test on dota_1_val_1024 in {cli_s:.2f} s wall; launches {files_launches} (K3 once "
+        f"per step, K1 and greedy once per eval batch), png_unfilter {unfilter_calls} calls; "
+        f"losses at iteration 1: "
+        + json.dumps({k: v for k, v in written[0].items() if k.startswith("loss/")})
+        + f"; checkpoint model_{FILE_STEPS:07d}.pth; val mAP {val_map:.4f} (random weights); "
+        f"eval loop from files {vst['images']} images {vst['loop_s']:.3f} s = {files_img_s:.2f} "
+        f"img/s (phase 11, in memory: {phase11_img_s:.2f}) [{card}]")
+
+    # the unlabeled test split: --eval-only from the .pth, merge and zip
+    test_dir = os.path.join(files_dir, "test")
+    K.reset_launch_counts()
+    test_stats = {}
+    t0 = time.perf_counter()
+    results = cli_main(["--eval-only"] + file_args + [
+        "MODEL.WEIGHTS", pth, "DATASETS.TEST", "('dota_1_test_1024',)", "OUTPUT_DIR", test_dir],
+        stats=test_stats)
+    cli_s = time.perf_counter() - t0
+    test_launches = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                     "greedy_keep": K.greedy_keep_bits_cuda.launches}
+    n_test_batches = -(-8 // b)
+    if set(test_launches.values()) != {n_test_batches} or results["dota_1_test_1024"] != {}:
+        raise SystemExit(f"test split: launches {test_launches}, results {results}")
+    inference = os.path.join(test_dir, "inference", "dota_1_test_1024")
+    files = sorted(f"Task1_{c}.txt" for c in DOTA_10_CLASSES)
+    with zipfile.ZipFile(os.path.join(inference, "submission.zip")) as z:
+        zipped = z.namelist()
+    if zipped != files or sorted(os.listdir(os.path.join(inference, "task1"))) != files:
+        raise SystemExit(f"test split: zip {zipped}")
+    t0 = time.perf_counter()
+    n_in = n_out = 0
+    for fn in files:  # the merge against poly_nms_plain, image by image and class by class
+        with open(os.path.join(inference, "task1", fn)) as f:
+            lines = [line.split() for line in f if line.strip()]
+        by_image = {}
+        for p in lines:
+            name, rate, ox, oy = parse_tile_id(p[0])
+            poly = (np.asarray([float(v) for v in p[2:10]]).reshape(4, 2) + [ox, oy]).reshape(8)
+            by_image.setdefault(name, []).append((float(p[1]), poly / rate))
+        want = []
+        for name, dets in by_image.items():
+            polys = np.stack([d[1] for d in dets])
+            scores = np.asarray([d[0] for d in dets])
+            for i in np.where(poly_nms_plain(polys, scores, 0.1))[0]:
+                want.append(f"{name} {scores[i]:.4f} " + " ".join(f"{v:.2f}" for v in polys[i]))
+        with open(os.path.join(inference, "task1_merged", fn)) as f:
+            got_lines = f.read().splitlines()
+        if got_lines != want or not {g.split()[0] for g in got_lines} <= {"P0001", "P0002"}:
+            raise SystemExit(f"test split: {fn} merged differs from poly_nms_plain's")
+        n_in, n_out = n_in + len(lines), n_out + len(got_lines)
+    plain_s = time.perf_counter() - t0
+    tst = test_stats["dota_1_test_1024"]
+    log(f"[files] CLI --eval-only from the Detectron2 .pth on dota_1_test_1024 (8 tiles, no "
+        f"annotations) in {cli_s:.2f} s wall; launches {test_launches}; task1/, task1_merged/ "
+        f"and submission.zip (the 15 Task1 files) written; host s: loop {tst['loop_s']:.3f}, "
+        f"Task1 files {tst['task1_s']:.3f}, merge {tst['merge_s']:.3f}, zip {tst['zip_s']:.3f}; "
+        f"{n_in} tile detections merged into {n_out} on P0001 and P0002, equal to "
+        f"poly_nms_plain's image by image and class by class (checked in {plain_s:.1f} s) "
+        f"[{card}]")
+
+    # train step ms from files against the same records with in-memory images
+    file_records = get_dataset("dota_1_train_1024", fcfg)
+    mem_records = [dict(r, image=IO.read_image(r["file_name"])) for r in file_records]
+    abmodel = build_model(train_cfg, device="cuda", generator=torch.Generator().manual_seed(18))
+    file_ms = {"files": [], "memory": []}
+    for where in ("files", "memory", "memory", "files"):
+        c_ = copy.deepcopy(train_cfg)
+        c_.SOLVER.MAX_ITER = FILE_AB_STEPS
+        c_.OUTPUT_DIR = os.path.join(files_dir, f"ab_{where}")
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        last = do_train(c_, abmodel, file_records if where == "files" else mem_records)
+        torch.cuda.synchronize()
+        file_ms[where].append((time.perf_counter() - t0 - last["checkpoint_s"]) * 1e3
+                              / FILE_AB_STEPS)
+        if A.assign_argmin_cuda.launches != FILE_AB_STEPS or not last["loss_is_finite"]:
+            raise SystemExit(f"{where} do_train: K3 {A.assign_argmin_cuda.launches}, {last}")
+    map_ms = {}
+    with ThreadPoolExecutor(train_cfg.DATALOADER.NUM_WORKERS) as pool:
+        for where, recs in (("files", file_records), ("memory", mem_records)):
+            ab_loader = DataLoader(train_cfg, recs, b, seed=1, pad_hw=(CANVAS, CANVAS),
+                                   pin_memory=True)
+            map_ms[where] = host_ms(lambda: ab_loader.make_batch(list(range(b)),
+                                                                 list(range(b)), pool))
+    log(f"[files] DOTA-1.0 1024 recipe, R-50 full width, batch {b}: step_ms from files "
+        f"{[round(v, 2) for v in file_ms['files']]} beside the same records with in-memory "
+        f"images {[round(v, 2) for v in file_ms['memory']]} (runs of {FILE_AB_STEPS} steps in the "
+        f"order files, memory, memory, files; host clock, synchronised, loader start included, "
+        f"checkpoint save excluded); phase 7's in-memory step_ms "
+        f"{train_s * 1e3 / TRAIN_STEPS:.2f}; one batch's mapping, map_ms from files "
+        f"{map_ms['files']:.2f} against in memory {map_ms['memory']:.2f} ({b} records on "
+        f"{train_cfg.DATALOADER.NUM_WORKERS} threads, host clock, median of 3) [{card}]")
+    files_launches["suppression_matrix"] += test_launches["suppression_matrix"]
+    files_launches["greedy_keep"] += test_launches["greedy_keep"]
+    del abmodel, mem_records
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
          "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"]
-         + tta_launches["suppression_matrix"],
+         + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"],
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
-                              "tta": tta_launches["suppression_matrix"]},
+                              "tta": tta_launches["suppression_matrix"],
+                              "files": files_launches["suppression_matrix"]},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
-         + tta_launches["greedy_keep"],
+         + tta_launches["greedy_keep"] + files_launches["greedy_keep"],
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
-                              "tta": tta_launches["greedy_keep"]},
+                              "tta": tta_launches["greedy_keep"],
+                              "files": files_launches["greedy_keep"]},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
-         "replaces": "dafne_tpu/ops/pallas/assign.py:35", "launches": train_launches + da_launches,
-         "launches_by_path": {"train": train_launches, "train_device_aug": da_launches},
+         "replaces": "dafne_tpu/ops/pallas/assign.py:35",
+         "launches": train_launches + da_launches + files_launches["assign_argmin"],
+         "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
+                              "files": files_launches["assign_argmin"]},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",

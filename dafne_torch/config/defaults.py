@@ -3,7 +3,8 @@
 The keys of inference (model, head, test-time input, decode budgets), of
 training (solver, assignment and losses, train-time input and sampler, the
 device-side augmentation), of evaluation (datasets, checkpoint weights,
-test settings, eval batch) and of test-time augmentation; counterpart of
+test settings, eval batch), of test-time augmentation and of the datasets
+read from disk (input format, the DOTA annotation skips); counterpart of
 ``dafne_tpu/config/defaults.py``.  ``tests/test_torch_config.py`` holds
 every value equal to the JAX package's default of the same name.
 """
@@ -24,7 +25,7 @@ def build_defaults() -> CfgNode:
 
     _C.MODEL = CfgNode()
     _C.MODEL.META_ARCHITECTURE = "OneStageDetector"
-    _C.MODEL.WEIGHTS = ""  # a port .pth loaded when no checkpoint is resumed
+    _C.MODEL.WEIGHTS = ""  # a port .pth, or a Detectron2 .pth / .pkl, unless a checkpoint resumes
     _C.MODEL.PIXEL_MEAN = [123.675, 116.28, 103.53]
     _C.MODEL.PIXEL_STD = [1.0, 1.0, 1.0]
 
@@ -107,12 +108,15 @@ def build_defaults() -> CfgNode:
     d.LOSS_LAMBDA.CENTER = 1.0
 
     _C.INPUT = CfgNode()
+    _C.INPUT.FORMAT = "BGR"  # channel order of the decoded image fed to the model
     _C.INPUT.MIN_SIZE_TRAIN = (800,)
     _C.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
     _C.INPUT.MAX_SIZE_TRAIN = 1333
     _C.INPUT.MIN_SIZE_TEST = 800
     _C.INPUT.MAX_SIZE_TEST = 1333
     _C.INPUT.HFLIP_TRAIN = True
+    _C.INPUT.MIN_AREA = 10  # DOTA annotations of this area or less are skipped
+    _C.INPUT.MIN_SIDE = 2  # and those whose longer hbox side is below this
     _C.INPUT.ROTATION_AUG_ANGLES = [0.0, 90.0, 180.0, 270.0]
     _C.INPUT.ROTATION_AUG_SAMPLE_STYLE = "choice"
     _C.INPUT.RESIZE_TYPE = "shortest-edge"
@@ -125,9 +129,11 @@ def build_defaults() -> CfgNode:
     _C.DATASETS = CfgNode()
     _C.DATASETS.TRAIN = ["dota_1_train_1024"]
     _C.DATASETS.TEST = ["dota_1_val_1024"]
+    _C.DATASETS.DOTA_REMOVE_CONTAINER_CRANE = False
 
     _C.DATALOADER = CfgNode()
     _C.DATALOADER.NUM_WORKERS = 4
+    _C.DATALOADER.CACHE_IMAGES = False  # cache decoded uint8 on the records
     _C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"
     _C.DATALOADER.REPEAT_THRESHOLD = 0.0
     _C.DATALOADER.FILTER_EMPTY_ANNOTATIONS = True

@@ -19,17 +19,23 @@ color-jitter draws with INPUT.USE_COLOR_AUGMENTATIONS) instead of a
 rendered "image"; the train step renders it on the device.  Corners still
 transform exactly on the host.
 
-Records carry their image as a uint8 array (``record["image"]``): decoding
-files is not ported.
+A record carries its image as a uint8 array (``record["image"]``), or
+names its file (``record["file_name"]``), decoded with
+``data/image_io.py::read_image`` in INPUT.FORMAT by the thread that maps
+it (:135).  The decoded image's own size drives the augmentation, as in the
+JAX package; a rendered image larger than the canvas (a record whose
+width and height disagree with its file) is cropped with one warning.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from dafne_torch.data import transforms as T
+from dafne_torch.data.image_io import read_image
 from dafne_torch.ops.device_warp import WARP_KEYS, draw_color_params, separable_warp_params
 
 
@@ -89,8 +95,13 @@ class DatasetMapper:
         self.pad_h, self.pad_w = pad_hw
         self.max_inst = cfg.TPU.MAX_INSTANCES
         self.sort_corners = cfg.MODEL.DAFNE.SORT_CORNERS_DATALOADER
+        self.fmt = cfg.INPUT.FORMAT
         self.color_aug = cfg.INPUT.USE_COLOR_AUGMENTATIONS and train
         self.device_aug = device_aug and train
+        # cache decoded uint8 images on the record dicts (small datasets;
+        # DOTA-scale train sets should leave this off)
+        self.cache_images = cfg.DATALOADER.CACHE_IMAGES
+        self._crop_warned = False
 
     def __call__(self, record: Dict, rng: Optional[np.random.RandomState] = None,
                  image_out: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
@@ -98,10 +109,13 @@ class DatasetMapper:
         an optional zeroed uint8 buffer (a slice of the batch) to render
         into, [pad_h, pad_w, 3], or with device aug a base canvas that holds
         the base image; the example's "image" (or "image_base") is it."""
-        if "image" not in record:
-            raise NotImplementedError("records must carry their image: decoding is not ported")
         rng = rng or np.random.RandomState()
-        img = record["image"]
+        if "image" in record:  # in-memory records, or cached
+            img = record["image"]
+        else:
+            img = read_image(record["file_name"], self.fmt)
+            if self.cache_images:
+                record["image"] = img
         h, w = img.shape[:2]
         if self.train:
             aug = T.build_train_augmentations(self.cfg, w, h, rng)
@@ -160,11 +174,16 @@ class DatasetMapper:
         rh, rw = img.shape[:2]
         if img.dtype != np.uint8:
             img = np.clip(img, 0, 255).astype(np.uint8)
-        if rh > self.pad_h or rw > self.pad_w:
-            raise ValueError(f"image ({rh}, {rw}) exceeds the canvas ({self.pad_h}, {self.pad_w})")
+        if (rh > self.pad_h or rw > self.pad_w) and not self._crop_warned:
+            # the canvas is sized from the records' width and height
+            self._crop_warned = True
+            logging.getLogger("dafne_torch").warning(
+                "resized image (%d, %d) exceeds the static canvas (%d, %d) and is cropped: a "
+                "record's width/height likely disagrees with its file", rh, rw, self.pad_h,
+                self.pad_w)
         canvas = image_out if image_out is not None else np.zeros(
             (self.pad_h, self.pad_w, 3), np.uint8)
-        canvas[:rh, :rw] = img
+        canvas[:rh, :rw] = img[:self.pad_h, :self.pad_w]
         return {"image": canvas, **gts, **self._meta(record, h, w, rh, rw)}
 
     @staticmethod

@@ -3,13 +3,18 @@
 The port's own copy of ``dafne_tpu/data/registry.py``.  Records are plain
 dicts:
 
-  {"image": uint8 [H, W, 3], "image_id": str, "height": int, "width": int,
+  {"file_name": str (or "image": uint8 [H, W, 3]), "image_id": str,
+   "height": int, "width": int,
    "annotations": [{"corners": [8 floats], "bbox": [x0, y0, x1, y1],
                     "category_id": int, "difficult": bool, "area": float}]}
+
+The data root comes from the DAFNE_DATA_DIR environment variable, read
+when the datasets are registered.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List
 
 
@@ -30,9 +35,16 @@ class _Catalog:
     def __contains__(self, name):
         return name in self._loaders
 
+    def list(self):
+        return sorted(self._loaders)
+
 
 DatasetCatalog = _Catalog()
 MetadataCatalog: Dict[str, dict] = {}
+
+
+def data_root() -> str:
+    return os.environ.get("DAFNE_DATA_DIR", "/data")
 
 
 def apply_overfit(records: List[dict], cfg) -> List[dict]:
@@ -51,9 +63,15 @@ def get_dataset(name: str, cfg=None) -> List[dict]:
 
 
 def register_all_datasets(cfg) -> None:
-    """Register every dataset family the port can load (idempotent): the
-    synthetic scenes, which carry their images.  DOTA, HRSC2016, UCAS-AOD
-    and ICDAR15 decode image files (cv2) and are not registered."""
+    """Register every dataset family the port can load (idempotent): DOTA,
+    HRSC2016, UCAS-AOD and ICDAR15 under ``data_root()``, and the synthetic
+    generator scenes, which carry their images.  The JAX package's
+    cv2-drawn ``synthetic_{train,val,test}`` set is not ported."""
     from dafne_torch.data import synthetic
+    from dafne_torch.data.datasets import dota, hrsc2016, icdar15, ucas_aod
 
+    dota.register_dota(cfg)
+    hrsc2016.register_hrsc(cfg)
+    ucas_aod.register_ucas_aod(cfg)
+    icdar15.register_icdar15(cfg)
     synthetic.register_synthetic_gen(cfg)

@@ -6,19 +6,27 @@ the step, written with ``torch.save`` under ``OUTPUT_DIR/checkpoints`` as
 ``model_<step>.pth``; the file ``last_checkpoint`` there names the newest,
 and the last `max_to_keep` are kept.  ``resume_or_load`` resumes from the
 newest checkpoint when asked and one exists, and otherwise loads
-MODEL.WEIGHTS (a port ``.pth``: a checkpoint or a bare model state dict)
-or keeps the initial weights.  Saves are synchronous (the JAX package saves
-asynchronously); orbax checkpoints of the JAX package are not read.
+MODEL.WEIGHTS when the file exists (:167-171; a ``detectron2://`` URL is
+skipped, with a log line): a port ``.pth`` (a checkpoint or a bare model
+state dict), or the reference's Detectron2 ``.pkl`` / ``.pth`` through
+``utils/weight_import.py``, told apart by their names, not by the file's
+extension.  Otherwise the initial weights stay.  Saves are synchronous
+(the JAX package saves asynchronously); orbax checkpoints of the JAX
+package are not read.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional
 
 import torch
 
+from dafne_torch.utils import weight_import
+
 LAST = "last_checkpoint"
+logger = logging.getLogger("dafne_torch")
 
 
 class Checkpointer:
@@ -82,7 +90,23 @@ class Checkpointer:
             return self.restore(model, optimizer, scheduler)
         weights = cfg.MODEL.WEIGHTS
         if weights and os.path.exists(weights):
-            device = next(model.parameters()).device
-            payload = torch.load(weights, map_location=device, weights_only=True)
-            model.load_state_dict(payload.get("model", payload))
+            load_weights(model, weights)
+        elif weights:
+            logger.info(f"MODEL.WEIGHTS {weights} is not a file here; keeping the initial weights")
         return 0
+
+
+def load_weights(model, path: str) -> None:
+    """Load a weights file into `model`: the port's own state dict (a
+    checkpoint's "model", or bare) strictly, or a Detectron2 / MSRA
+    ``.pkl`` or ``.pth`` through the importer.  ``torch.save`` files load
+    with ``weights_only=True``; only a ``.pkl`` goes through pickle
+    (``weight_import.read_weights_file``)."""
+    payload = weight_import.read_weights_file(path)
+    sd = payload.get("model", payload)
+    if weight_import.looks_like_reference(sd):
+        report = weight_import.import_into(model, weight_import.state_arrays(payload))
+        logger.info(f"imported {path}: {len(report.filled)} of {len(report.target_paths)} "
+                    f"tensors filled, {len(report.unmatched)} reference keys unmatched")
+    else:
+        model.load_state_dict(sd)

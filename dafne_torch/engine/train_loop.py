@@ -13,11 +13,13 @@ device:
 - ``do_test`` (:108): every DATASETS.TEST dataset through the eval loader
   and ``make_eval_step`` on the tight eval canvas, one batch in flight
   while the host fetches the previous one, into the VOC-07 evaluator;
-  ``results.txt``, the Task1 files and ``test_results.csv``.
+  ``results.txt``, the Task1 files and ``test_results.csv``.  An unlabeled
+  test split (:225-242) gets no AP: its Task1 files go to ``task1/``, and
+  for DOTA the cross-tile merge to ``task1_merged/`` and
+  ``submission.zip`` (``evaluation/result_merge.py``).
 - ``save_test_results``, ``setup_logging`` and ``default_setup``.
 
-Several processes, the profiler window, the unlabeled test split
-(``result_merge`` and the submission zip) and sample renderings are not
+Several processes, the profiler window and sample renderings are not
 ported.
 """
 
@@ -41,6 +43,7 @@ from dafne_torch.engine.inference import make_eval_step
 from dafne_torch.engine.optimizer import auto_scale_config, build_optimizer
 from dafne_torch.engine.trainer import make_train_step, resolve_train_device_aug
 from dafne_torch.evaluation import build_evaluator
+from dafne_torch.evaluation.result_merge import make_submission_zip, merge_by_poly
 from dafne_torch.ops.device_warp import WARP_KEYS
 
 logger = logging.getLogger("dafne_torch")
@@ -104,8 +107,10 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
     output_dir/inference/<dataset> and a row per metric is appended to
     output_dir/test_results.csv.  A `stats` dict receives, per dataset, the
     images evaluated, the host seconds of the loop (model, decode, fetch)
-    and of ``evaluate()``, and the per-image detections ("preds": image id
-    to corners, scores, classes).  The model is left in the mode it came in."""
+    and of ``evaluate()`` (on an unlabeled test split: of writing the
+    Task1 files, of the merge and of the zip instead), and the per-image
+    detections ("preds": image id to corners, scores, classes).  The model
+    is left in the mode it came in."""
     device = next(model.parameters()).device
     was_training = model.training
     model.eval()
@@ -113,9 +118,7 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
     for dataset_name in cfg.DATASETS.TEST:
         records = get_dataset(dataset_name, cfg)
         meta = MetadataCatalog.get(dataset_name, {})
-        if meta.get("is_test") and not any(r.get("annotations") for r in records):
-            raise NotImplementedError(
-                f"{dataset_name}: unlabeled test splits (result_merge, submission zip) are not ported")
+        unlabeled = meta.get("is_test") and not any(r.get("annotations") for r in records)
         # the tight per-dataset canvas (record dims) instead of MAX_SIZE_TEST^2
         pad_hw = eval_pad_hw(cfg, records)
         eval_step = make_eval_step(model, cfg, pad_hw)
@@ -139,22 +142,49 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
             n_images += _consume(evaluator, *pending)
         loop_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res = evaluator.evaluate()
+        if unlabeled:
+            res, split = {}, _write_submission(evaluator, meta, out_dir)
+        else:
+            res, split = evaluator.evaluate(), {}
         evaluate_s = time.perf_counter() - t0
         if out_dir and cfg.TEST.NUM_PRED_VIS > 0:
             logger.info(f"TEST.NUM_PRED_VIS={cfg.TEST.NUM_PRED_VIS}: sample renderings are not "
                         "ported (they need cv2); none written")
         logger.info(f"eval {dataset_name}: {n_images} images in {loop_s:.3f} s "
                     f"({n_images / max(loop_s, 1e-9):.2f} img/s: model, decode, fetch); "
-                    f"evaluate {evaluate_s:.3f} s; mAP={res.get('mAP', 0):.2f}")
+                    + (f"Task1 files, merge and zip {evaluate_s:.3f} s" if unlabeled else
+                       f"evaluate {evaluate_s:.3f} s; mAP={res.get('mAP', 0):.2f}"))
         results[dataset_name] = res
         if stats is not None:
             stats[dataset_name] = {"images": n_images, "loop_s": loop_s,
-                                   "evaluate_s": evaluate_s, "preds": evaluator._preds}
+                                   "evaluate_s": evaluate_s, "preds": evaluator._preds, **split}
         if output_dir and res:
             save_test_results(output_dir, dataset_name, step, res)
     model.train(was_training)
     return results
+
+
+def _write_submission(evaluator, meta, out_dir) -> Dict[str, float]:
+    """An unlabeled test split's files under `out_dir` (none without it):
+    the Task1 files in task1/ and, for DOTA, their cross-tile merge in
+    task1_merged/ and submission.zip.  Returns the host seconds of each."""
+    if not out_dir:
+        return {}
+    split = {}
+    t0 = time.perf_counter()
+    task1 = os.path.join(out_dir, "task1")
+    evaluator.write_task1_files(task1)
+    split["task1_s"] = time.perf_counter() - t0
+    if meta.get("evaluator_type") == "dota":
+        t0 = time.perf_counter()
+        merged = os.path.join(out_dir, "task1_merged")
+        merge_by_poly(task1, merged)
+        split["merge_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zp = make_submission_zip(merged, os.path.join(out_dir, "submission.zip"))
+        split["zip_s"] = time.perf_counter() - t0
+        logger.info(f"wrote submission {zp}")
+    return split
 
 
 def save_test_results(output_dir, dataset_name, step, res):

@@ -18,7 +18,9 @@ Counterpart of ``dafne_tpu/engine/tta.py`` (:46-296):
   all copies merge by class-aware polygon NMS (class 5 merged into 4,
   ``utils/polyiou.py::poly_nms``) and a post-NMS top-k
   (``tta_inference_single``); ``do_test_with_tta`` scores every
-  DATASETS.TEST dataset into OUTPUT_DIR/inference_tta/<dataset>.
+  DATASETS.TEST dataset into OUTPUT_DIR/inference_tta/<dataset>, decoding
+  a record's file (``data/image_io.py::read_image``, :282-283) where it
+  carries no image.
 
 The JAX package's host path (cv2 warps, TPU.TTA_DEVICE_AUG False, and the
 fallback for copies that are not separable, i.e. TEST.AUG.ROTATION_ANGLES
@@ -38,6 +40,7 @@ import torch
 
 from dafne_torch.data import get_dataset
 from dafne_torch.data import transforms as T
+from dafne_torch.data.image_io import read_image
 from dafne_torch.engine.inference import make_eval_step
 from dafne_torch.evaluation import build_evaluator
 from dafne_torch.ops.device_warp import (
@@ -247,10 +250,9 @@ def do_test_with_tta(cfg, model, output_dir=None, stats: Optional[dict] = None):
         per_image = []
         t0 = time.perf_counter()
         for r in records:
-            if "image" not in r:
-                raise NotImplementedError("records must carry their image: decoding is not ported")
+            img = r["image"] if "image" in r else read_image(r["file_name"], cfg.INPUT.FORMAT)
             st = {} if stats is not None else None
-            det = tta_inference_single(cfg, steps, r["image"], st)
+            det = tta_inference_single(cfg, steps, img, st)
             evaluator.process_image(r["image_id"], det["corners"], det["scores"],
                                     det["classes"], det["valid"])
             per_image.append(st)

@@ -44,7 +44,12 @@ def test_every_port_default_equals_jax_default():
         assert node == value, key
 
 
-@pytest.mark.parametrize("recipe", ["dota-1.0/1024.yaml", "hrsc/base.yaml"])
+RECIPES = sorted(os.path.relpath(os.path.join(d, f), os.path.join(ROOT, "configs"))
+                 for d, _, fs in os.walk(os.path.join(ROOT, "configs")) for f in fs
+                 if f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("recipe", RECIPES)
 def test_recipes_merge_like_jax(recipe):
     path = os.path.join(ROOT, "configs", recipe)
     jax_cfg, cfg = jax_get_cfg(), get_cfg()
@@ -59,11 +64,11 @@ def test_recipes_merge_like_jax(recipe):
 
 def test_port_imports_nothing_of_jax():
     """Every dafne_torch module and chip_smoke import with jax, flax, optax,
-    dafne_tpu, cv2 and yaml blocked."""
+    dafne_tpu, cv2, PIL and yaml blocked."""
     modules = [m.name for m in pkgutil.walk_packages(dafne_torch.__path__, "dafne_torch.")]
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'dafne_tpu', 'cv2', 'yaml'):\n"
+        "for m in ('jax', 'flax', 'optax', 'dafne_tpu', 'cv2', 'PIL', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {modules + ['chip_smoke']!r}:\n"
@@ -77,7 +82,11 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.data.loader", "dafne_torch.tools.train", "dafne_torch.engine.checkpoint",
               "dafne_torch.evaluation.evaluator", "dafne_torch.evaluation.voc_eval",
               "dafne_torch.data.registry", "dafne_torch.utils.polyiou",
-              "dafne_torch.ops.device_warp", "dafne_torch.engine.tta"):
+              "dafne_torch.ops.device_warp", "dafne_torch.engine.tta",
+              "dafne_torch.data.image_io", "dafne_torch.data.datasets.dota",
+              "dafne_torch.data.datasets.hrsc2016", "dafne_torch.data.datasets.ucas_aod",
+              "dafne_torch.data.datasets.icdar15", "dafne_torch.utils.weight_import",
+              "dafne_torch.evaluation.result_merge"):
         assert m in modules
 
 
@@ -88,6 +97,15 @@ def test_slice_keys_have_the_jax_defaults():
                 "TPU.TRAIN_DEVICE_AUG", "TPU.EVAL_INT8", "TPU.EVAL_INT8_SCALES",
                 "TPU.EVAL_INT8_MIN_CHANNELS", "TPU.DECODE_APPROX_TOPK"):
         assert key in leaves, key  # equal to JAX's: test_every_port_default_equals_jax_default
+
+
+def test_data_from_disk_keys_have_the_jax_defaults():
+    leaves, jax_cfg = dict(_leaves(get_cfg())), jax_get_cfg()
+    for key, value in (("INPUT.FORMAT", "BGR"), ("INPUT.MIN_AREA", 10), ("INPUT.MIN_SIDE", 2),
+                       ("DATASETS.DOTA_REMOVE_CONTAINER_CRANE", False),
+                       ("DATALOADER.CACHE_IMAGES", False)):
+        section, name = key.split(".")
+        assert leaves[key] == jax_cfg[section][name] == value, key
 
 
 def test_eval_int8_raises():

@@ -179,7 +179,8 @@ def test_evaluator_equals_jax(tmp_path):
 # ------------------------------------------------------------------- datasets
 
 
-def test_registry_matches_jax():
+def test_registry_matches_jax(tmp_path, monkeypatch):
+    monkeypatch.setenv("DAFNE_DATA_DIR", str(tmp_path))  # an empty data root
     cfg, jcfg = get_cfg(), jax_get_cfg()
     cfg.merge_from_list(["DEBUG.OVERFIT_NUM_IMAGES", "3"])
     jcfg.merge_from_list(["DEBUG.OVERFIT_NUM_IMAGES", "3"])
@@ -193,8 +194,10 @@ def test_registry_matches_jax():
     assert len(got) == 3 and [r["image_id"] for r in got] == [r["image_id"] for r in want]
     for r, w in zip(got, want):
         assert r["annotations"] == w["annotations"] and r["image"].shape == w["image"].shape
-    assert "dota_1_val_1024" not in DatasetCatalog  # needs image decoding: not registered
-    with pytest.raises(KeyError):
+    # the file families are registered too; with no tree under the data
+    # root, loading one raises
+    assert MetadataCatalog["dota_1_val_1024"] == JaxMetadataCatalog["dota_1_val_1024"]
+    with pytest.raises(FileNotFoundError):
         get_dataset("dota_1_val_1024")
 
 

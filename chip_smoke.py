@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase's failure is caught):
-  1. the card, and an nvcc build of dafne_torch/csrc/*.cu for sm_90a (and a
-     g++ build of the host library csrc/png_unfilter.cpp);
+  1. the card, and an nvcc build of dafne_torch/csrc/*.cu for sm_90a (and g++
+     builds of the host libraries csrc/png_unfilter.cpp and image_warp.cpp);
   2. the suppression-matrix kernel (K1, S as bit rows) against its plain
      PyTorch version, packed, at N = 4096, batch 8, on a dense all-valid
      15-class mix and a 25%-valid class-major mix: bit rows equal word for
@@ -116,11 +116,32 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      then FILE_AB_STEPS-step do_train runs from the files and from the same
      records with in-memory images in turns (files, memory, memory, files),
      and one batch's host mapping (map_ms) from each.
+ 16. the HRSC2016 multi-scale recipe (configs/pre-trained/hrsc_r50_ms.yaml:
+     R-50 at full width, 1 class, the 16-scale train ladder 320-1520, 30-
+     degree rotations, eval at 800/1333): an HRSC2016 tree of
+     N_HRSC_TRAIN + N_HRSC_TEST 24-bit BMPs of six non-square sizes (ships
+     drawn as filled rotated rectangles, a planted point and axis-aligned
+     segment on every fourth image) decoded bit for bit; the CLI with
+     --config-file from an R-50.pkl, HRSC_STEPS steps at batch 8: the
+     bucket ladder, at least two canvases hit (SEED HRSC_SEED), each
+     canvas's step built once, K3 once per step, every loss finite; step
+     ms per canvas, the host warps' ms per image on the loader's threads,
+     map_ms, peak memory; K3 against its plain version on the tables of
+     its canvases; --eval-only on hrsc_test (K1 and greedy once per batch,
+     the planted objects dropped, eval img/s) and K1 and greedy against
+     their plain versions on the non-square eval canvas; three requests
+     of different sizes through Predictor (canvases equal to the eval
+     mapper's, detections equal to do_test's on the same images); TTA on
+     N_HRSC_TTA test images with 30-degree copies on the host, then with
+     every copy on the host (TPU.TTA_DEVICE_AUG False): s/image, host warp
+     and merge ms.  Every image the phase warps on the host is held bit for
+     bit against the plain NumPy version.
 
 The line before the last holds one JSON object with every kernel's numbers
-(K1's and greedy's launches from phases 4, 11's CLI run, 13's TTA run and
-15's two CLI runs, K3's from phases 7, 14 and 15's CLI run, K2's from phase
-11's replay; "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
+(K1's and greedy's launches from phases 4, 11's CLI run, 13's TTA run,
+15's two CLI runs and 16's eval, serve and TTA runs, K3's from phases 7,
+14, 15's and 16's CLI runs, K2's from phase 11's replay;
+"launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
 which hold the wrapper's host time when the card waits for the launch;
@@ -145,6 +166,7 @@ import sys
 import time
 import zipfile
 import zlib
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -194,6 +216,13 @@ DA_STEPS = 10  # timed steps per run of the device-aug against host-aug comparis
 N_FILE_VAL = 32  # val tiles of the DOTA tree on disk (train: the N_TRAIN_SCENES scenes)
 FILE_STEPS = 4  # train steps of the CLI run from files
 FILE_AB_STEPS = 20  # timed steps per run of the files against in-memory comparison
+# phase 16: the HRSC2016 multi-scale recipe (configs/pre-trained/hrsc_r50_ms.yaml)
+HRSC_RECIPE = os.path.join("configs", "pre-trained", "hrsc_r50_ms.yaml")
+N_HRSC_TRAIN, N_HRSC_TEST = 16, 16  # trainval and test BMPs of the HRSC tree
+HRSC_STEPS = 12  # train steps through the CLI
+HRSC_SEED = 0  # SEED: its per-batch scale draws hit all 4 canvases of the ladder in 12 steps
+HRSC_TTA_SIZES = "(640, 800, 960)"  # the recipe's 16-scale TTA ladder, cut for time
+N_HRSC_TTA = 2  # test images through TTA
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -266,8 +295,6 @@ def device_kernels(fn, traces=3):
     fn() on the card, from torch.profiler traces after one warm-up call:
     per name the most of `traces` traces, since a trace drops events now
     and then."""
-    from collections import Counter
-
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -692,6 +719,150 @@ def write_dota_tree(root, train, val, originals, size, stride, rng, tag="1024"):
     return {"expected": expected, "counts": counts, "crane": (scene, 2)}
 
 
+def write_bmp(path, bgr):
+    """Write a BGR image [H, W, 3] uint8 as a 24-bit bottom-up BMP (rows
+    padded to 4 bytes), as the HRSC2016 images are stored."""
+    h, w, _ = bgr.shape
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = bgr[::-1].reshape(h, 3 * w)
+    header = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(header + info + rows.tobytes())
+
+
+# HRSC2016 image sizes (width, height): non-square, within the dataset's
+# range of about 300 x 300 to 1500 x 900
+HRSC_SIZES = ((1166, 753), (1280, 800), (1000, 667), (500, 333), (933, 624), (1500, 900))
+
+
+def ship_corners(cx, cy, w, h, angle):
+    """An HRSC mbox (center, size, angle in radians) as [4, 2] corners,
+    ``data/datasets/hrsc2016.py::xywha_to_corners``."""
+    base = np.array([[-w / 2, -h / 2], [w / 2, -h / 2], [w / 2, h / 2], [-w / 2, h / 2]])
+    rot = np.array([[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]])
+    return base @ rot.T + [cx, cy]
+
+
+def draw_ships(w, h, n, rng):
+    """A sea of noise with `n` ships drawn as filled rotated rectangles:
+    (BGR image [h, w, 3] uint8, [(cx, cy, sw, sh, angle)])."""
+    img = np.empty((h, w, 3), np.uint8)
+    img[...] = rng.randint(60, 110, 3)
+    img += rng.randint(0, 24, (h, w, 1)).astype(np.uint8)
+    ships = []
+    for _ in range(n):
+        sw = rng.uniform(0.08, 0.3) * min(w, h) * 2
+        sh = sw / rng.uniform(3, 6)
+        cx, cy = rng.uniform(0.15, 0.85) * w, rng.uniform(0.15, 0.85) * h
+        a = rng.uniform(-np.pi / 2, np.pi / 2)
+        c = ship_corners(cx, cy, sw, sh, a)
+        x0, y0 = np.maximum(np.floor(c.min(0)).astype(int), 0)
+        x1, y1 = np.minimum(np.ceil(c.max(0)).astype(int), [w, h])
+        ys, xs = np.mgrid[y0:y1, x0:x1] + 0.5
+        inside = np.ones(xs.shape, bool)
+        for k in range(4):  # the same side of every edge (corners run clockwise)
+            (ax, ay), (bx, by) = c[k], c[(k + 1) % 4]
+            inside &= (bx - ax) * (ys - ay) - (by - ay) * (xs - ax) >= 0
+        img[y0:y1, x0:x1][inside] = rng.randint(150, 256, 3)
+        ships.append((cx, cy, sw, sh, a))
+    return img, ships
+
+
+def write_hrsc_tree(root, splits, rng, sizes=HRSC_SIZES, ships=(2, 6)):
+    """Write an HRSC2016 tree in the layout ``data/datasets/hrsc2016.py``
+    reads: ImageSets/<split>.txt, labelXml/<id>.xml and images/<id>.bmp
+    (24-bit).  `splits` maps a split name to its number of images; image n
+    takes size sizes[n % len(sizes)] and a random number of ships in
+    `ships`, and every fourth image also a planted degenerate pair the
+    eval mapper must drop: a point and an axis-aligned segment.  Returns
+    {"expected": {bmp path: BGR array}, "ids": {split: [ids]}, "planted":
+    {id: objects the eval mapper drops}}."""
+    for d in ("ImageSets", "labelXml", "images"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    expected, ids, planted = {}, {}, {}
+    n = 0
+    for split, count in splits.items():
+        ids[split] = []
+        for _ in range(count):
+            img_id = 100000001 + n
+            w, h = sizes[n % len(sizes)]
+            img, objs = draw_ships(w, h, rng.randint(ships[0], ships[1] + 1), rng)
+            if n % 4 == 0:
+                objs = objs + [(w / 2, h / 2, 0.0, 0.0, 0.3), (w / 3, h / 3, 0.0, 40.0, 0.0)]
+                planted[img_id] = 2
+            path = os.path.join(root, "images", f"{img_id}.bmp")
+            write_bmp(path, img)
+            expected[path] = img
+            xml = "".join(
+                "<HRSC_Object>" + "".join(f"<{k}>{v:.4f}</{k}>" for k, v in zip(
+                    ("mbox_cx", "mbox_cy", "mbox_w", "mbox_h", "mbox_ang"), o))
+                + "<difficult>0</difficult></HRSC_Object>" for o in objs)
+            with open(os.path.join(root, "labelXml", f"{img_id}.xml"), "w") as f:
+                f.write(f"<HRSC_Image><Img_ID>{img_id}</Img_ID><Img_SizeWidth>{w}"
+                        f"</Img_SizeWidth><Img_SizeHeight>{h}</Img_SizeHeight>"
+                        f"<HRSC_Objects>{xml}</HRSC_Objects></HRSC_Image>")
+            ids[split].append(img_id)
+            n += 1
+        with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+            f.write("\n".join(str(i) for i in ids[split]) + "\n")
+    return {"expected": expected, "ids": ids, "planted": planted}
+
+
+class WarpRecorder:
+    """While entered, every call of the host warp library
+    (``data/image_warp.py``: ``resize_linear``, ``warp_affine_linear``) is
+    kept with its input, its arguments, its output and its host-clock ms on
+    the calling thread (the loader's threads included); ``check`` holds
+    each output against the plain NumPy version."""
+
+    def __init__(self, iw):
+        self.iw = iw
+        self.calls = []
+        self.orig = (iw.resize_linear, iw.warp_affine_linear)
+
+    def __enter__(self):
+        resize, warp = self.orig
+
+        def rec(kind, fn, img, *args):
+            t0 = time.perf_counter()
+            out = fn(img, *args)
+            self.calls.append((kind, img, args, out, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        self.iw.resize_linear = lambda img, w, h: rec("resize", resize, img, w, h)
+        self.iw.warp_affine_linear = lambda img, m, w, h: rec(
+            "warp", warp, img, np.array(m, np.float32), w, h)
+        return self
+
+    def __exit__(self, *exc):
+        self.iw.resize_linear, self.iw.warp_affine_linear = self.orig
+
+    def ms(self, kind):
+        return [c[4] for c in self.calls if c[0] == kind]
+
+    def check(self, what, threads=8):
+        """Exit unless every kept output equals the plain version's; then
+        forget the calls.  Returns {kind: calls checked} and the seconds."""
+        t0 = time.perf_counter()
+
+        def same(call):
+            kind, img, args, out, _ = call
+            plain = (self.iw.resize_linear_plain if kind == "resize"
+                     else self.iw.warp_affine_linear_plain)
+            return np.array_equal(out, plain(img, *args))
+
+        with ThreadPoolExecutor(threads) as pool:
+            ok = list(pool.map(same, self.calls))
+        if not all(ok):
+            bad = [c[:1] + (c[1].shape, c[2][-2:]) for c, g in zip(self.calls, ok) if not g]
+            raise SystemExit(f"{what}: the warp library differs from its plain version on {bad}")
+        counts = {k: sum(c[0] == k for c in self.calls) for k in ("resize", "warp")}
+        self.calls = []
+        return counts, time.perf_counter() - t0
+
+
 def d2_name(name):
     """The port's state-dict name -> its name in a Detectron2 DAFNe
     checkpoint (``head.scales`` is one ``scales.<level>.scale`` per level)."""
@@ -788,6 +959,10 @@ def main() -> int:
     from dafne_torch.config import get_cfg
     from dafne_torch.data import get_dataset, register_all_datasets
     from dafne_torch.data import image_io as IO
+    from dafne_torch.data import image_warp as IW
+    from dafne_torch.data.mapper import eval_pad_hw, train_canvas_buckets
+    from dafne_torch.data.transforms import build_test_augmentation
+    from dafne_torch.data.registry import DatasetCatalog, MetadataCatalog
     from dafne_torch.data.loader import DataLoader
     from dafne_torch.data.mapper import DatasetMapper
     from dafne_torch.data.synthetic import GEN_CLASSES, load_synthetic_gen
@@ -840,11 +1015,12 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ("quad_nms", "assign", "png_unfilter")
+    sources = ("quad_nms", "assign", "png_unfilter", "image_warp")
     with ThreadPoolExecutor(len(sources)) as pool:  # one compiler per source, all at once
         build_logs = dict(zip(sources, pool.map(kbuild.build, sources)))
     log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu and g++ png_unfilter.cpp (the host "
-        f"unfilter of phase 15) in parallel: {time.perf_counter() - t0:.1f} s")
+        f"unfilter of phase 15) and image_warp.cpp (the host warps of phase 16) in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, build_log in build_logs.items():
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -899,7 +1075,7 @@ def main() -> int:
     # ---- 4. main path ------------------------------------------------------
     torch.backends.cudnn.benchmark = True
     cfg = get_cfg()
-    cfg.INPUT.MAX_SIZE_TEST = CANVAS
+    cfg.INPUT.MIN_SIZE_TEST = cfg.INPUT.MAX_SIZE_TEST = CANVAS  # requests at unit scale
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         model.head.cls_logits.bias.fill_(-2.0)
@@ -934,13 +1110,13 @@ def main() -> int:
                 raise SystemExit(f"malformed detection {d}")
 
     # where one request batch's wall time goes, on the host clock
-    images = predictor.canvas(requests[:b])
+    images, scale = predictor.canvas(requests[:b])
     pinned = images.cpu().pin_memory()
     host = {
         "detect_ms": host_ms(lambda: predictor.detect(requests[:b])),
         "canvas_ms": host_ms(lambda: predictor.canvas(requests[:b])),
         "h2d_ms": host_ms(lambda: pinned.to("cuda", non_blocking=True)),
-        "eval_step_ms": host_ms(lambda: predictor.step(images)),
+        "eval_step_ms": host_ms(lambda: predictor.step(images, scale)),
     }
     host["rest_ms"] = host["detect_ms"] - host["canvas_ms"] - host["eval_step_ms"]
     log(f"[main] one batch of {b} through Predictor.detect, host clock, median of 3: "
@@ -1368,10 +1544,14 @@ def main() -> int:
     differ = sum(int((k2 != k1).sum()) for k2, k1 in zip(keeps_2d, keeps))
     # K2 hands its bit rows to the greedy kernel as K1 does: no int8 S, no
     # fill and no pack, so beside K2 for K1 the two impls run the same kernels
-    per_impl = {impl: device_kernels(lambda: rotated_nms_grouped_batched(
-        c0["corners"], c0["scores"], c0["classes"], c0["valid"], thr, gspec.class_merge,
-        gspec.num_classes, GROUP_K, min_total, impl=impl), traces=KERNEL_COUNT_TRACES)
-        for impl in ("pallas", "pallas-2d")}
+    # traced in the order pallas, pallas-2d, pallas: a run of traces can miss
+    # the same few events in each of its traces, so each name keeps its most
+    per_impl = {"pallas": Counter(), "pallas-2d": Counter()}
+    for impl in ("pallas", "pallas-2d", "pallas"):
+        counts = device_kernels(lambda: rotated_nms_grouped_batched(
+            c0["corners"], c0["scores"], c0["classes"], c0["valid"], thr, gspec.class_merge,
+            gspec.num_classes, GROUP_K, min_total, impl=impl), traces=KERNEL_COUNT_TRACES)
+        per_impl[impl] |= counts
     extra = {k: n - per_impl["pallas"][k] for k, n in per_impl["pallas-2d"].items()
              if K2_KERNEL not in k and n > per_impl["pallas"][k]}
     log(f"[eval] replay of the grouped NMS of {len(cands)} batches with impl=pallas-2d: K2 launches "
@@ -1873,32 +2053,320 @@ def main() -> int:
     del abmodel, mem_records
     torch.cuda.empty_cache()
 
+    # ---- 16. the HRSC2016 multi-scale recipe: train, evaluate, serve, TTA ----
+    hrsc_dir = os.path.join(ROOT, "output", "chip_smoke_hrsc")
+    shutil.rmtree(hrsc_dir, ignore_errors=True)
+    os.environ["DAFNE_DATA_DIR"] = os.path.join(hrsc_dir, "data")
+    t0 = time.perf_counter()
+    htree = write_hrsc_tree(os.path.join(hrsc_dir, "data", "hrsc"),
+                            {"trainval": N_HRSC_TRAIN, "test": N_HRSC_TEST},
+                            np.random.RandomState(16))
+    for path, want in htree["expected"].items():
+        if not np.array_equal(IO.read_image(path), want):
+            raise SystemExit(f"{path} did not decode to the array written")
+    log(f"[hrsc] HRSC2016 tree: {N_HRSC_TRAIN} trainval and {N_HRSC_TEST} test 24-bit BMPs of "
+        f"(w, h) {sorted({(a.shape[1], a.shape[0]) for a in htree['expected'].values()})}, ships "
+        f"drawn as filled rotated rectangles, {len(htree['planted'])} images with a planted point "
+        f"and axis-aligned segment; written and each decoded back to the array written in "
+        f"{time.perf_counter() - t0:.1f} s (host set-up)")
+    recipe = os.path.join(ROOT, HRSC_RECIPE)
+    # the recipe's global batch of 8 on the one card; the CLI reads the YAML
+    hrsc_args = ["--config-file", recipe, "SOLVER.REFERENCE_WORLD_SIZE", "0",
+                 "SOLVER.IMS_PER_BATCH", str(b), "TPU.EVAL_BATCH", str(b), "SEED", str(HRSC_SEED),
+                 "MODEL.WEIGHTS", pkl]
+    hcfg = get_cfg()
+    hcfg.merge_from_file(recipe)
+    hcfg.merge_from_list(hrsc_args[2:])
+    register_all_datasets(hcfg)
+    ladder = train_canvas_buckets(hcfg, get_dataset("hrsc_trainval", hcfg))
+    draw_rng = np.random.RandomState(HRSC_SEED * 7919 + 13)  # the loader's per-batch stream
+    drawn = [ladder.draw(draw_rng) for _ in range(HRSC_STEPS)]
+    log(f"[hrsc] bucket ladder (h, w) {ladder.canvases} for the recipe's scales {ladder.sizes} "
+        f"(MAX_SIZE_TRAIN {hcfg.INPUT.MAX_SIZE_TRAIN}, TRAIN_MAX_BUCKETS "
+        f"{hcfg.TPU.TRAIN_MAX_BUCKETS}); SEED {HRSC_SEED} draws scales {[d[0] for d in drawn]}: "
+        f"canvases {[d[1] for d in drawn]}")
+
+    # train through the CLI: the 30-degree angles keep the augmentation on the host
+    htrain_dir = os.path.join(hrsc_dir, "train")
+    IW.reset_launch_counts()
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    htrain = {}
+    t0 = time.perf_counter()
+    with WarpRecorder(IW) as rec:
+        cli_main(hrsc_args + ["SOLVER.MAX_ITER", str(HRSC_STEPS), "DATASETS.TEST", "()",
+                              "OUTPUT_DIR", htrain_dir], train_stats=htrain)
+    torch.cuda.synchronize()
+    hcli_s = time.perf_counter() - t0
+    hrsc_k3 = A.assign_argmin_cuda.launches
+    hpeak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hsteps = htrain["steps"]
+    want_hits = {c: sum(d[1] == c for d in drawn) for c in {d[1] for d in drawn}}
+    if hrsc_k3 != HRSC_STEPS or {c: len(v["ms"]) for c, v in hsteps.items()} != want_hits:
+        raise SystemExit(f"hrsc train: K3 {hrsc_k3} for {HRSC_STEPS} steps; steps per canvas "
+                         f"{ {c: len(v['ms']) for c, v in hsteps.items()} }, drawn {want_hits}")
+    if len(hsteps) < 2 or any(v["builds"] != 1 for v in hsteps.values()):
+        raise SystemExit(f"hrsc train: canvases {list(hsteps)}, builds "
+                         f"{ {c: v['builds'] for c, v in hsteps.items()} }")
+    hlosses = [x for v in hsteps.values() for x in v["loss"]]
+    if not all(np.isfinite(hlosses)):
+        raise SystemExit(f"hrsc train: non-finite losses {hlosses}")
+    resize_ms, warp_ms = rec.ms("resize"), rec.ms("warp")
+    launched = (IW.resize_linear.launches, IW.warp_affine_linear.launches)
+    warp_counts, warp_check_s = rec.check("hrsc train")
+    step_split = {f"{h}x{w}": {"steps": len(v["ms"]), "first_ms": round(v["ms"][0], 2),
+                               "later_median_ms": (round(statistics.median(v["ms"][1:]), 2)
+                                                   if len(v["ms"]) > 1 else None)}
+                  for (h, w), v in sorted(hsteps.items())}
+    log(f"[hrsc] CLI --config-file {HRSC_RECIPE}, R-50 full width, 1 class, batch {b}, "
+        f"{HRSC_STEPS} steps from the R-50.pkl in {hcli_s:.2f} s wall (model build, loader, "
+        f"steps, checkpoint); K3 {hrsc_k3} launches (once per step); each canvas's step built "
+        f"once; step ms per canvas on CUDA events (the first apart: cuDNN's search) "
+        f"{json.dumps(step_split)}; total loss per step in canvas order "
+        f"{[round(x, 4) for x in hlosses]}; peak memory {hpeak_gib:.2f} GiB "
+        f"(max_memory_allocated) [{card}]")
+    log(f"[hrsc] host warps on the loader's threads (host clock per image, median and range): "
+        f"resize_linear {statistics.median(resize_ms):.2f} ms ({min(resize_ms):.2f}-"
+        f"{max(resize_ms):.2f}, {len(resize_ms)} images: angle 0 or 90), warp_affine_linear "
+        f"{statistics.median(warp_ms):.2f} ms ({min(warp_ms):.2f}-{max(warp_ms):.2f}, "
+        f"{len(warp_ms)} images: 30, 60, 120 or 150 degrees); library calls {launched} "
+        f"(prefetched batches included); every output equal to the plain NumPy version "
+        f"{warp_counts} (checked in {warp_check_s:.1f} s on 8 threads) [{card}]")
+    map_loader = DataLoader(hcfg, get_dataset("hrsc_trainval", hcfg), b, seed=1, pin_memory=True,
+                            buckets=ladder)
+    hmap_ms = {}
+    with ThreadPoolExecutor(hcfg.DATALOADER.NUM_WORKERS) as pool:
+        for scale in (min(ladder.sizes), max(ladder.sizes)):
+            canvas = ladder.canvas_for(scale)
+            hmap_ms[f"scale {scale} on {canvas[0]}x{canvas[1]}"] = round(host_ms(
+                lambda: map_loader.make_batch(list(range(b)), list(range(b)), pool, scale,
+                                              canvas)), 2)
+    log(f"[hrsc] one batch's mapping, map_ms ({b} BMP records read, augmented and placed on "
+        f"{hcfg.DATALOADER.NUM_WORKERS} threads, host clock, median of 3): {json.dumps(hmap_ms)} "
+        f"[{card}]")
+
+    # K3 against its plain version on each canvas's location table, on a batch
+    # mapped at the largest scale drawn for that canvas
+    hspec = AssignmentSpec.from_config(hcfg)
+    for canvas in sorted(want_hits):
+        scale = max(d[0] for d in drawn if d[1] == canvas)
+        hb_ = to_device(map_loader.make_batch(list(range(b)), list(range(b)), None, scale,
+                                              canvas), "cuda")
+        err = check_assign(hspec, make_location_tables(canvas, hspec, device="cuda"), hb_,
+                           f"hrsc canvas {canvas[0]}x{canvas[1]} scale {scale}", card)[5]
+        max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
+
+    # evaluate: --eval-only on hrsc_test at 800/1333 from the checkpoint
+    K.reset_launch_counts()
+    IW.reset_launch_counts()
+    hstats = {}
+    t0 = time.perf_counter()
+    with WarpRecorder(IW) as rec:
+        results = cli_main(["--eval-only"] + hrsc_args + [
+            "DATASETS.TEST", "('hrsc_test',)", "TEST.AUG.ENABLED", "False",
+            "OUTPUT_DIR", htrain_dir], stats=hstats)
+    hcli_s = time.perf_counter() - t0
+    heval_launches = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                      "greedy_keep": K.greedy_keep_bits_cuda.launches}
+    n_hbatches = -(-N_HRSC_TEST // b)
+    eval_counts, eval_check_s = rec.check("hrsc eval")
+    hst = hstats["hrsc_test"]
+    hmap = results["hrsc_test"].get("mAP")
+    test_records = get_dataset("hrsc_test", hcfg)
+    resized = sum((a.out_w, a.out_h) != (r["width"], r["height"]) for r in test_records
+                  for a in [build_test_augmentation(hcfg, r["width"], r["height"])])
+    if set(heval_launches.values()) != {n_hbatches} or eval_counts["resize"] != resized:
+        raise SystemExit(f"hrsc eval: launches {heval_launches} for {n_hbatches} batches, "
+                         f"library calls {eval_counts} for {resized} images that resize")
+    if hst["images"] != N_HRSC_TEST or not isinstance(hmap, float) or not np.isfinite(hmap):
+        raise SystemExit(f"hrsc eval: {hst['images']} images, mAP {hmap}")
+    hpad = eval_pad_hw(hcfg, test_records)
+    emapper = DatasetMapper(hcfg, hpad, train=False)
+    kept = [int(emapper(r)["gt_valid"].sum()) for r in test_records]
+    want_kept = [len(r["annotations"]) - htree["planted"].get(r["image_id"], 0)
+                 for r in test_records]
+    if kept != want_kept:
+        raise SystemExit(f"hrsc eval mapper kept {kept} objects, expected {want_kept}")
+    log(f"[hrsc] CLI --eval-only on hrsc_test ({N_HRSC_TEST} BMPs, MIN_SIZE_TEST "
+        f"{hcfg.INPUT.MIN_SIZE_TEST}, MAX_SIZE_TEST {hcfg.INPUT.MAX_SIZE_TEST}, eval canvas "
+        f"{hpad[0]}x{hpad[1]}, batch {b}) in {hcli_s:.2f} s wall; launches {heval_launches} "
+        f"(once per batch); every eval image's resize equal to the plain version {eval_counts} "
+        f"({N_HRSC_TEST - resized} images of 1280x800 at unit scale) "
+        f"(checked in {eval_check_s:.1f} s); the planted objects dropped by the eval mapper; "
+        f"eval loop {hst['images']} images {hst['loop_s']:.3f} s = "
+        f"{hst['images'] / hst['loop_s']:.2f} img/s (host clock; decode from BMP, resize, "
+        f"model, NMS, fetch); evaluate() {hst['evaluate_s']:.3f} s; mAP {hmap:.4f} (random "
+        f"head, {HRSC_STEPS} steps) [{card}]")
+    # the eval loop again in this process, after cuDNN's search for its shapes
+    smodel = build_model(hcfg, device="cuda")
+    Checkpointer(htrain_dir).resume_or_load(smodel, hcfg, resume=True)
+    ecfg_ = copy.deepcopy(hcfg)
+    ecfg_.DATASETS.TEST = ("hrsc_test",)
+    K.reset_launch_counts()
+    warm = {}
+    train_loop.do_test(ecfg_, smodel, None, stats=warm)
+    heval_warm = K.suppression_bits_cuda.launches
+    wst = warm["hrsc_test"]
+    log(f"[hrsc] the same eval loop again (do_test, the checkpoint's weights, cuDNN's search "
+        f"done): {wst['images']} images {wst['loop_s']:.3f} s = "
+        f"{wst['images'] / wst['loop_s']:.2f} img/s (host clock); K1 {heval_warm} launches "
+        f"[{card}]")
+    if heval_warm != n_hbatches:
+        raise SystemExit(f"hrsc eval again: K1 launched {heval_warm} times")
+    # from here the class bias is -2, as in phases 4 and 11, so that the NMS
+    # inputs, the requests' detections and the TTA merge are full
+    with torch.no_grad():
+        smodel.head.cls_logits.bias.fill_(-2.0)
+    smodel.eval()
+    # K1 and greedy against their plain versions on the non-square eval canvas
+    hloader = DataLoader(hcfg, test_records, b, pad_hw=hpad, train=False)
+    hdspec = DecodeSpec.from_config(hcfg)
+    hbatches = iter(hloader)
+    hbatch = next(hbatches)
+    hbatches.close()
+    with torch.inference_mode():
+        hc = nms_candidates(smodel(hbatch["image"].cuda()), hdspec)
+        _, hpc, hpk, hpv = sorted_nms_inputs(hc["corners"], hc["scores"], hc["classes"],
+                                             hc["valid"], hdspec.class_merge, scores01=True)
+        hbits, hs = check_k1(hpc, hpk, hdspec.nms_threshold, "the hrsc eval canvas")
+        hkeep = check_greedy(hbits, hs, hpv, "the hrsc eval canvas")
+    log(f"[hrsc] K1's bits equal to the packed plain S and greedy's keep-set to the plain walk "
+        f"on the first eval batch's NMS input ({list(hpk.shape)} on the {hpad[0]}x{hpad[1]} "
+        f"canvas; {int(hpv.sum())} valid slots, {int(hkeep.sum())} kept) [{card}]")
+    del hbits, hs, hc
+
+    # serve: three requests of different sizes through the Predictor
+    req_rng = np.random.RandomState(17)
+    serve_records = []
+    for n, (w, h) in enumerate(((1500, 900), (900, 1500), (500, 333))):
+        img, ships = draw_ships(w, h, 4, req_rng)
+        serve_records.append({"image": img, "image_id": f"request{n}", "width": w, "height": h,
+                              "annotations": [{"corners": ship_corners(*sh).reshape(8).tolist(),
+                                               "category_id": 0} for sh in ships]})
+    requests = [r["image"] for r in serve_records]
+    predictor = Predictor(smodel, hcfg, batch=b)
+    if eval_pad_hw(hcfg, serve_records) != predictor.canvas_hw:
+        raise SystemExit(f"serve: the requests' eval canvas differs from {predictor.canvas_hw}")
+    IW.reset_launch_counts()
+    with WarpRecorder(IW) as rec:
+        canvas, scale = predictor.canvas(requests)
+    smapper = DatasetMapper(hcfg, predictor.canvas_hw, train=False)
+    for i, r in enumerate(serve_records):
+        want = smapper(r)
+        if not (np.array_equal(canvas[i].cpu().numpy(), want["image"])
+                and np.array_equal(scale[i].cpu().numpy(), want["scale_xy"])):
+            raise SystemExit(f"serve: request {i}'s canvas or scale differs from the eval mapper's")
+    serve_counts, _ = rec.check("hrsc serve")
+    K.reset_launch_counts()
+    serve_ms = []
+    for _ in range(2):  # the first call pays cuDNN's search for the canvas
+        t0 = time.perf_counter()
+        dets = predictor.detect(requests)
+        serve_ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+    serve_launches = K.suppression_bits_cuda.launches
+    DatasetCatalog.register("hrsc_serve", lambda: serve_records)
+    MetadataCatalog["hrsc_serve"] = dict(MetadataCatalog.get("hrsc_test"), split="serve")
+    scfg = copy.deepcopy(hcfg)
+    scfg.DATASETS.TEST = ("hrsc_serve",)
+    sstats = {}
+    K.reset_launch_counts()
+    train_loop.do_test(scfg, smodel, None, stats=sstats)
+    serve_launches += K.suppression_bits_cuda.launches
+    got = {f"request{i}": {"corners": np.asarray([d["corners"] for d in per], np.float32).reshape(-1, 8),
+                           "scores": np.asarray([d["score"] for d in per], np.float32),
+                           "classes": np.asarray([d["class"] for d in per])}
+           for i, per in enumerate(dets)}
+    want = sstats["hrsc_serve"]["preds"]
+    m1, t1 = match_rate(got, want)
+    m2, t2 = match_rate(want, got)
+    if m1 != t1 or m2 != t2 or t1 == 0:
+        raise SystemExit(f"serve: Predictor matched {m1}/{t1} of do_test's detections and "
+                         f"do_test {m2}/{t2} of the Predictor's")
+    log(f"[hrsc] serve: 3 requests (w, h) (1500, 900), (900, 1500), (500, 333) through "
+        f"Predictor.detect at batch {b}: {serve_ms} ms wall (first and second call); canvases and "
+        f"scale_xy equal to the eval mapper's on the {predictor.canvas_hw[0]}x"
+        f"{predictor.canvas_hw[1]} canvas, resizes equal to the plain version {serve_counts}; "
+        f"detections equal to do_test's on the same images ({t1} detections, score within 1e-4, "
+        f"corners within 1e-2, both ways); K1 and greedy {serve_launches} launches each "
+        f"(two detect calls and do_test, one batch each) [{card}]")
+    if serve_launches != 3:
+        raise SystemExit(f"serve: K1 launched {serve_launches} times for 3 batches")
+
+    # TTA: 30-degree copies through the host warp, then every copy on the host
+    DatasetCatalog.register("hrsc_tta", lambda: test_records[:N_HRSC_TTA])
+    MetadataCatalog["hrsc_tta"] = dict(MetadataCatalog.get("hrsc_test"), split="tta")
+    hrsc_tta_launches = 0
+    tta_split = {}
+    for device_aug in (True, False):
+        tcfg_ = copy.deepcopy(hcfg)
+        tcfg_.merge_from_list(["DATASETS.TEST", "('hrsc_tta',)", "TEST.AUG.MIN_SIZES",
+                               HRSC_TTA_SIZES, "TEST.AUG.ROTATION_ANGLES", "(30.0,)",
+                               "TPU.TTA_DEVICE_AUG", str(device_aug)])
+        K.reset_launch_counts()
+        IW.reset_launch_counts()
+        tstats = {}
+        with WarpRecorder(IW) as rec:
+            TTA.do_test_with_tta(tcfg_, smodel, None, stats=tstats)
+        launched = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                    "greedy_keep": K.greedy_keep_bits_cuda.launches}
+        tcounts, tcheck_s = rec.check(f"hrsc TTA (device aug {device_aug})")
+        ts = tstats["hrsc_tta"]
+        per = ts["per_image"]
+        n_steps = sum(sum(p["steps"].values()) for p in per)
+        want_host = 6 if device_aug else 9
+        if set(launched.values()) != {n_steps} or any(
+                p["copies"] != 9 or p["host_copies"] != want_host for p in per):
+            raise SystemExit(f"hrsc TTA (device aug {device_aug}): launches {launched} for "
+                             f"{n_steps} eval steps; copies {[(p['copies'], p['host_copies']) for p in per]}")
+        hrsc_tta_launches += n_steps
+        tta_split[device_aug] = {
+            "s_per_image": round(ts["loop_s"] / ts["images"], 3),
+            "wall_ms": [round(p["wall_ms"], 1) for p in per],
+            "host_warp_ms": [round(p["host_warp_ms"], 1) for p in per],
+            "device_warp_ms": [round(p["warp_ms"], 2) for p in per],
+            "merge_ms": [round(p["merge_ms"], 1) for p in per],
+            "eval_steps": per[0]["steps"], "boxes_in": [p["boxes_in"] for p in per],
+            "boxes_out": [p["boxes_out"] for p in per], "library_calls": tcounts}
+        log(f"[hrsc] TTA on {ts['images']} test images, MIN_SIZES {HRSC_TTA_SIZES} (the recipe's "
+            f"16-scale ladder cut for time), ROTATION_ANGLES (30,), HFLIP: 9 copies each, "
+            f"TPU.TTA_DEVICE_AUG {device_aug} ({want_host} copies rendered on the host): "
+            f"{json.dumps(tta_split[device_aug])} (host clock but device_warp_ms and the eval "
+            f"steps, on CUDA events); K1 and greedy {n_steps} launches each, once per eval step; "
+            f"every host copy equal to the plain version (checked in {tcheck_s:.1f} s) [{card}]")
+    hrsc_nms_launches = 2 * n_hbatches + serve_launches + hrsc_tta_launches
+    del smodel, predictor
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
          "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"]
-         + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"],
+         + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"]
+         + hrsc_nms_launches,
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
-                              "files": files_launches["suppression_matrix"]},
+                              "files": files_launches["suppression_matrix"],
+                              "hrsc": hrsc_nms_launches},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
-         + tta_launches["greedy_keep"] + files_launches["greedy_keep"],
+         + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches,
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
-                              "files": files_launches["greedy_keep"]},
+                              "files": files_launches["greedy_keep"],
+                              "hrsc": hrsc_nms_launches},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35",
-         "launches": train_launches + da_launches + files_launches["assign_argmin"],
+         "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3,
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
-                              "files": files_launches["assign_argmin"]},
+                              "files": files_launches["assign_argmin"], "hrsc": hrsc_k3},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",

@@ -175,7 +175,7 @@ def build_defaults() -> CfgNode:
     _C.TEST.AUG.FLIP = True
     _C.TEST.AUG.HFLIP = True
     _C.TEST.AUG.VFLIP = True
-    _C.TEST.AUG.ROTATION_ANGLES = ()  # multiples of 90 only: others raise
+    _C.TEST.AUG.ROTATION_ANGLES = ()
 
     # key names kept from the JAX package's TPU namespace so recipes merge
     t = _C.TPU = CfgNode()
@@ -187,12 +187,19 @@ def build_defaults() -> CfgNode:
     t.EVAL_BATCH = 16  # eval images per step
     t.ASSIGN_IMPL = "auto"  # "pallas" (the CUDA kernel) | "xla" (plain) | "auto"
     t.IMAGE_SIZE_DIVISIBILITY = 128
+    t.BUCKETED_TRAIN = True  # multi-scale train on a small static-canvas
+    # ladder: the shortest-edge scale is drawn once per BATCH (vs the
+    # reference's per-image draw) and one train step is built per distinct
+    # canvas (data/mapper.py::TrainScaleBuckets).  Only active for
+    # shortest-edge resize with >1 train scale.
+    t.TRAIN_MAX_BUCKETS = 4  # max distinct train canvases (train steps built)
     t.PREFETCH_DEPTH = 2  # batches the train loader keeps ready
     t.HOST_ASSIGN = False  # True is not ported and raises
     t.TRAIN_DEVICE_AUG = "auto"  # train augmentation rendered on the device
     # (ops/device_warp.py): True | False | "auto" (on with <= 2 host cores)
-    t.TTA_DEVICE_AUG = True  # TTA copies rendered on the device; False (host
-    # cv2 warps) is not ported and raises
+    t.TTA_DEVICE_AUG = True  # separable TTA copies rendered on the device;
+    # the others (arbitrary angles), and every copy with False, render on
+    # the host (data/image_warp.py)
     t.EVAL_INT8 = False  # w8a8 eval convs: True is not ported and raises
     t.EVAL_INT8_SCALES = ""  # calibrated activation scales (with EVAL_INT8)
     t.EVAL_INT8_MIN_CHANNELS = 0  # smallest quantized conv width (with EVAL_INT8)

@@ -12,7 +12,10 @@ record, with each slot's ``image_id`` and ``batch_valid``.  With
 ``device_aug`` (:90-160) a train batch holds the base images
 ("image_base", on the ``device_aug_base_hw`` canvas) and the mapper's warp
 and color vectors instead of rendered canvases; records without a size
-fall back to the host path.
+fall back to the host path.  With ``buckets`` (a ``TrainScaleBuckets``,
+TPU.BUCKETED_TRAIN, :193-210) one shortest-edge scale is drawn per batch
+from its own stream, ``RandomState(seed * 7919 + 13)``, after the batch's
+indices and seeds, and the batch renders onto that scale's canvas.
 """
 
 from __future__ import annotations
@@ -83,11 +86,13 @@ class DataLoader:
     DATALOADER.NUM_WORKERS threads.  `train`: infinite, kept
     TPU.PREFETCH_DEPTH batches ahead by a producer thread; else one pass in
     record order (``len`` batches).  `device_aug` (train only): device-aug
-    batches; ``self.device_aug`` says whether the loader makes them."""
+    batches; ``self.device_aug`` says whether the loader makes them.
+    `buckets` (train only): a ``TrainScaleBuckets``, whose per-batch draw
+    sets each batch's scale and canvas."""
 
     def __init__(self, cfg, records: List[dict], batch_size: int, seed: int = 0,
                  pad_hw: Optional[Tuple[int, int]] = None, pin_memory: bool = False,
-                 train: bool = True, device_aug: bool = False):
+                 train: bool = True, device_aug: bool = False, buckets=None):
         if train and cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
             records = [r for r in records if r.get("annotations")] or records
         self.records = records
@@ -106,21 +111,26 @@ class DataLoader:
         self.seed = seed
         self.pin_memory = pin_memory
         self.sampler = build_sampler(cfg, self.records, seed) if train else None
+        self.buckets = buckets if train else None
 
     def make_batch(self, indices: List[int], seeds: List[int],
-                   pool: Optional[ThreadPoolExecutor] = None) -> Dict:
+                   pool: Optional[ThreadPoolExecutor] = None, min_size: Optional[int] = None,
+                   pad_hw: Optional[Tuple[int, int]] = None) -> Dict:
         """Map records `indices` with RandomState(seeds[i]) each, rendering
         straight into one [B, pad_h, pad_w, 3] uint8 tensor ("image"), or
         with device aug placing the base images in one [B, *base_hw, 3]
-        ("image_base")."""
-        hw = self.base_hw if self.device_aug else (self.mapper.pad_h, self.mapper.pad_w)
+        ("image_base").  `min_size` and `pad_hw` override the scale draw
+        and the canvas (a bucket's)."""
+        pad_hw = tuple(pad_hw) if pad_hw is not None else (self.mapper.pad_h, self.mapper.pad_w)
+        hw = self.base_hw if self.device_aug else pad_hw
         images = torch.zeros((len(indices), *hw, 3), dtype=torch.uint8,
                              pin_memory=self.pin_memory)
         view = images.numpy()
 
         def one(args):
             slot, i, s = args
-            return self.mapper(self.records[i], np.random.RandomState(s), image_out=view[slot])
+            return self.mapper(self.records[i], np.random.RandomState(s), image_out=view[slot],
+                               min_size=min_size, pad_hw=pad_hw)
 
         work = list(zip(range(len(indices)), indices, seeds))
         examples = list(pool.map(one, work)) if pool is not None else [one(a) for a in work]
@@ -155,6 +165,7 @@ class DataLoader:
 
     def _train_iter(self):
         seed_counter = itertools.count(self.seed * 1_000_003 + 1)
+        scale_rng = np.random.RandomState(self.seed * 7919 + 13)  # per-batch scale draws
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -164,7 +175,11 @@ class DataLoader:
                     while not stop.is_set():
                         idx = [next(self.sampler) for _ in range(self.batch_size)]
                         seeds = [next(seed_counter) % (2**31) for _ in idx]
-                        q.put(self.make_batch(idx, seeds, pool if self.num_workers > 0 else None))
+                        min_size = pad_hw = None
+                        if self.buckets is not None:
+                            min_size, pad_hw = self.buckets.draw(scale_rng)
+                        q.put(self.make_batch(idx, seeds, pool if self.num_workers > 0 else None,
+                                              min_size, pad_hw))
             except Exception as e:  # surface it in the consumer instead of hanging
                 q.put(e)
 

@@ -3,7 +3,8 @@
 Counterpart of ``dafne_tpu/data/mapper.py`` (``DatasetMapper.__call__``
 :113-262 with its device-aug branch :87-110, :144-210, :265-301,
 ``_sort_quad_np`` :26, ``_shoelace`` :68, ``device_aug_base_hw`` :304,
-``eval_pad_hw`` :335-362):
+``eval_pad_hw`` :335-362, ``TrainScaleBuckets`` and ``train_canvas_buckets``
+:365-489):
 
   augmentation (``data/transforms.py``: the random train map, or the
   test-time resize) -> corners transformed exactly -> degenerate instances
@@ -104,12 +105,17 @@ class DatasetMapper:
         self._crop_warned = False
 
     def __call__(self, record: Dict, rng: Optional[np.random.RandomState] = None,
-                 image_out: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+                 image_out: Optional[np.ndarray] = None, min_size: Optional[int] = None,
+                 pad_hw: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
         """`rng` draws the train augmentation (unused at eval).  `image_out`:
         an optional zeroed uint8 buffer (a slice of the batch) to render
         into, [pad_h, pad_w, 3], or with device aug a base canvas that holds
-        the base image; the example's "image" (or "image_base") is it."""
+        the base image; the example's "image" (or "image_base") is it.
+        `min_size` and `pad_hw` are the bucketed loader's per-batch
+        overrides (``TrainScaleBuckets``): the shortest-edge scale, which
+        `rng` then does not draw, and the canvas."""
         rng = rng or np.random.RandomState()
+        pad_h, pad_w = pad_hw if pad_hw is not None else (self.pad_h, self.pad_w)
         if "image" in record:  # in-memory records, or cached
             img = record["image"]
         else:
@@ -118,11 +124,11 @@ class DatasetMapper:
                 record["image"] = img
         h, w = img.shape[:2]
         if self.train:
-            aug = T.build_train_augmentations(self.cfg, w, h, rng)
+            aug = T.build_train_augmentations(self.cfg, w, h, rng, min_size)
         else:
             aug = T.build_test_augmentation(self.cfg, w, h)
         if self.device_aug:
-            transpose, aug_params = self._device_aug_params(aug, w, h, rng)
+            transpose, aug_params = self._device_aug_params(aug, w, h, (pad_h, pad_w), rng)
         else:
             img = aug.apply_image(img)
             if self.color_aug:
@@ -174,16 +180,14 @@ class DatasetMapper:
         rh, rw = img.shape[:2]
         if img.dtype != np.uint8:
             img = np.clip(img, 0, 255).astype(np.uint8)
-        if (rh > self.pad_h or rw > self.pad_w) and not self._crop_warned:
+        if (rh > pad_h or rw > pad_w) and not self._crop_warned:
             # the canvas is sized from the records' width and height
             self._crop_warned = True
             logging.getLogger("dafne_torch").warning(
                 "resized image (%d, %d) exceeds the static canvas (%d, %d) and is cropped: a "
-                "record's width/height likely disagrees with its file", rh, rw, self.pad_h,
-                self.pad_w)
-        canvas = image_out if image_out is not None else np.zeros(
-            (self.pad_h, self.pad_w, 3), np.uint8)
-        canvas[:rh, :rw] = img[:self.pad_h, :self.pad_w]
+                "record's width/height likely disagrees with its file", rh, rw, pad_h, pad_w)
+        canvas = image_out if image_out is not None else np.zeros((pad_h, pad_w, 3), np.uint8)
+        canvas[:rh, :rw] = img[:pad_h, :pad_w]
         return {"image": canvas, **gts, **self._meta(record, h, w, rh, rw)}
 
     @staticmethod
@@ -196,12 +200,12 @@ class DatasetMapper:
             "scale_xy": np.asarray([w / rw, h / rh], np.float32),
         }
 
-    def _device_aug_params(self, aug, w, h, rng) -> Tuple[bool, Dict]:
+    def _device_aug_params(self, aug, w, h, pad_hw, rng) -> Tuple[bool, Dict]:
         """(whether the base is transposed, the example's vectors): this
-        draw's warp taps onto the (pad_h, pad_w) canvas, its output extent
-        and, with color aug, the jitter draws (taken from `rng` where the
-        host path's ``apply_color_augmentations`` takes them)."""
-        warp = separable_warp_params(aug, w, h, (self.pad_h, self.pad_w))
+        draw's warp taps onto the `pad_hw` canvas, its output extent and,
+        with color aug, the jitter draws (taken from `rng` where the host
+        path's ``apply_color_augmentations`` takes them)."""
+        warp = separable_warp_params(aug, w, h, pad_hw)
         if warp is None:
             raise RuntimeError("TPU.TRAIN_DEVICE_AUG drew a non-separable augmentation; "
                                "transforms.train_geometric_augs_separable should have refused it")
@@ -212,18 +216,25 @@ class DatasetMapper:
         return warp.transpose, out
 
 
+def _record_wh(r) -> Tuple[int, int]:
+    """(width, height) of a record, from its keys or else its image;
+    ValueError when it has neither."""
+    w, h = r.get("width"), r.get("height")
+    if (not w or not h) and "image" in r:
+        h, w = r["image"].shape[:2]
+    if not w or not h:
+        raise ValueError("record without width/height")
+    return int(w), int(h)
+
+
 def device_aug_base_hw(records) -> Optional[Tuple[int, int]]:
     """The static base canvas of device aug: the largest source side over
     the records, squared (square because anti-diagonal draws transpose the
     base).  None when a record has neither its size nor its image."""
-    s = 0
-    for r in records:
-        w, h = r.get("width"), r.get("height")
-        if (not w or not h) and "image" in r:
-            h, w = r["image"].shape[:2]
-        if not w or not h:
-            return None
-        s = max(s, int(w), int(h))
+    try:
+        s = max((max(_record_wh(r)) for r in records), default=0)
+    except ValueError:
+        return None
     return (s, s) if s else None
 
 
@@ -248,14 +259,108 @@ def eval_pad_hw(cfg, records) -> Tuple[int, int]:
     div = cfg.TPU.IMAGE_SIZE_DIVISIBILITY
     mh = mw = 0
     for r in records:
-        w, h = r.get("width"), r.get("height")
-        if not w or not h:
-            if "image" not in r:
-                return worst
-            h, w = r["image"].shape[:2]
-        aug = T.build_test_augmentation(cfg, int(w), int(h))
+        try:
+            w, h = _record_wh(r)
+        except ValueError:
+            return worst
+        aug = T.build_test_augmentation(cfg, w, h)
         mh = max(mh, aug.out_h)
         mw = max(mw, aug.out_w)
     if mh == 0:
         return worst
     return min(-(-mh // div) * div, worst[0]), min(-(-mw // div) * div, worst[1])
+
+
+class TrainScaleBuckets:
+    """Per-batch multi-scale sampling onto a small ladder of canvases
+    (``TPU.BUCKETED_TRAIN``), JAX :365-464.
+
+    The reference draws MIN_SIZE_TRAIN per image and pads to the batch's
+    largest; a static canvas would pay the worst case every step.  Here the
+    scale is drawn once per batch (``draw``), every image of the batch
+    renders onto that scale's canvas, and the train loop builds one step
+    per distinct canvas.  A scale's canvas holds every record resized to
+    it (from the records' sizes, as ``eval_pad_hw``), rounded to
+    TPU.IMAGE_SIZE_DIVISIBILITY and capped at ``pad_target_hw``; the
+    canvases merge, the adjacent pair (by area) with the smallest area
+    ratio first, into their elementwise maximum until at most
+    TPU.TRAIN_MAX_BUCKETS remain."""
+
+    def __init__(self, cfg, records):
+        self.sampling = cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING
+        self.sizes = [int(s) for s in cfg.INPUT.MIN_SIZE_TRAIN]
+        self.max_size = int(cfg.INPUT.MAX_SIZE_TRAIN)
+        div = int(cfg.TPU.IMAGE_SIZE_DIVISIBILITY)
+        worst = pad_target_hw(cfg, train=True)
+        max_buckets = int(cfg.TPU.TRAIN_MAX_BUCKETS)
+        self._wh = sorted({_record_wh(r) for r in records})
+        if self.sampling == "range":  # a grid over the range
+            lo, hi = self.sizes
+            cand = sorted({int(v) for v in np.linspace(lo, hi, 8)})
+        else:
+            cand = sorted(set(self.sizes))
+
+        def rup(v):
+            return int(-(-v // div) * div)
+
+        def needed(s: int) -> Tuple[int, int]:
+            mh = mw = 0
+            for w, h in self._wh:
+                a = T.shortest_edge_resize(w, h, s, self.max_size)
+                mh, mw = max(mh, a.out_h), max(mw, a.out_w)
+            return min(rup(mh), worst[0]), min(rup(mw), worst[1])
+
+        canvas = {s: needed(s) for s in cand}
+
+        def distinct():
+            return sorted(set(canvas.values()), key=lambda c: (c[0] * c[1], c))
+
+        d = distinct()
+        while len(d) > max(1, max_buckets):
+            ratios = [(d[i + 1][0] * d[i + 1][1]) / (d[i][0] * d[i][1]) for i in range(len(d) - 1)]
+            i = int(np.argmin(ratios))
+            merged = (max(d[i][0], d[i + 1][0]), max(d[i][1], d[i + 1][1]))
+            canvas = {s: merged if c in (d[i], d[i + 1]) else c for s, c in canvas.items()}
+            d = distinct()
+        self._canvas = canvas  # candidate scale -> canvas
+        self.canvases = d  # the ladder, area-ascending
+
+    def canvas_for(self, min_size: int) -> Tuple[int, int]:
+        """The canvas of a scale: its own, or for a "range" draw between grid
+        points the next grid point's (canvases grow with the scale)."""
+        if min_size in self._canvas:
+            return self._canvas[min_size]
+        for s in sorted(self._canvas):
+            if s >= min_size:
+                return self._canvas[s]
+        return self._canvas[max(self._canvas)]
+
+    def draw(self, rng: np.random.RandomState) -> Tuple[int, Tuple[int, int]]:
+        """One batch's scale draw: (min_size, canvas_hw)."""
+        if self.sampling == "range":
+            lo, hi = self.sizes
+            s = int(rng.randint(lo, hi + 1))
+        else:
+            s = int(self.sizes[rng.randint(len(self.sizes))])
+        return s, self.canvas_for(s)
+
+
+def train_canvas_buckets(cfg, records) -> Optional[TrainScaleBuckets]:
+    """The bucketed multi-scale ladder of `cfg` over `records`, or None
+    when bucketing does not apply (JAX :467-489): TPU.BUCKETED_TRAIN off, a
+    resize that is not shortest-edge, a single train scale, a "range" that
+    is malformed or a point, records without a size, or every scale on one
+    canvas."""
+    if not cfg.TPU.BUCKETED_TRAIN or cfg.INPUT.RESIZE_TYPE != "shortest-edge":
+        return None
+    sizes = list(cfg.INPUT.MIN_SIZE_TRAIN)
+    if cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING == "range":
+        if len(sizes) != 2 or sizes[0] >= sizes[1]:
+            return None
+    elif len(set(sizes)) < 2:
+        return None
+    try:
+        buckets = TrainScaleBuckets(cfg, records)
+    except ValueError:
+        return None
+    return buckets if len(buckets.canvases) >= 2 else None

@@ -9,13 +9,13 @@ draws in the same order), ``train_geometric_augs_separable`` (:248),
 composes into one matrix, corners transform exactly (and map back with
 ``AffineAug.invert_coords``), and the image is transformed once.
 
-Images on the host: only signed-permutation matrices at unit scale are
-rendered (flips, transposes and 90-degree rotations of a square image,
-and the identity of the 1024^2 test tiles at unit scale), as the numpy
-copy the JAX package's fast path (:62-110) makes with cv2.  Any other
-matrix needs a warp and raises ``NotImplementedError`` here; separable
-ones (resizes, flips, 90-degree rotations) render on the device through
-``ops/device_warp.py``.
+Images on the host (``AffineAug.apply_image``, JAX :61-130): a signed
+permutation matrix (flips, 90-degree rotations, resizes) renders as a
+transpose, ``data/image_warp.py::resize_linear`` and flips; any other
+matrix (an arbitrary rotation) through ``warp_affine_linear``.  Both are
+byte for byte cv2's INTER_LINEAR, so a host canvas equals the JAX
+package's.  Separable draws may also render on the device
+(``ops/device_warp.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from dafne_torch.data import image_warp as IW
 
 
 @dataclasses.dataclass
@@ -53,10 +55,12 @@ class AffineAug:
         b = np.vstack([other.matrix, [0, 0, 1]])
         return AffineAug((b @ a)[:2], other.out_w, other.out_h)
 
-    def apply_image(self, img: np.ndarray) -> np.ndarray:
-        """The image under the map, as a contiguous copy.  Only a signed
-        (anti)diagonal linear part at unit scale with the canonical flip
-        offsets is supported; anything else raises NotImplementedError."""
+    def _axis_aligned_fast(self, img: np.ndarray) -> Optional[np.ndarray]:
+        """The image under a signed-permutation matrix (flips, 90-degree
+        rotations, per-axis scales) as transpose, resize and flips, or None
+        when the linear part is not a signed (anti)diagonal, the scales do
+        not map the source's extent exactly onto the output, or the
+        translation is not the canonical flip offset (JAX :61-110)."""
         lin, t = self.matrix[:, :2], self.matrix[:, 2]
         eps = 1e-9
         swapped = abs(lin[0, 0]) < eps and abs(lin[1, 1]) < eps
@@ -65,28 +69,44 @@ class AffineAug:
         elif abs(lin[0, 1]) < eps and abs(lin[1, 0]) < eps:
             sx, sy = lin[0, 0], lin[1, 1]
         else:
-            sx = sy = None
+            return None
         src_h, src_w = img.shape[:2]
+        if src_w == 0 or src_h == 0:
+            return None
         if swapped:
             src_h, src_w = src_w, src_h
-        unit = (sx is not None and abs(abs(sx) - 1.0) < 1e-9 and abs(abs(sy) - 1.0) < 1e-9
-                and (src_w, src_h) == (self.out_w, self.out_h))
-        if unit:
-            want_tx = self.out_w if sx < 0 else 0.0
-            want_ty = self.out_h if sy < 0 else 0.0
-            unit = abs(t[0] - want_tx) <= 1e-6 and abs(t[1] - want_ty) <= 1e-6
-        if not unit:
-            raise NotImplementedError(
-                "only flips and 90-degree rotations at unit scale are ported; a general "
-                f"angle or a resize needs a warp (matrix {self.matrix.tolist()})"
-            )
+        if abs(abs(sx) * src_w - self.out_w) > 1e-6 * max(self.out_w, 1):
+            return None
+        if abs(abs(sy) * src_h - self.out_h) > 1e-6 * max(self.out_h, 1):
+            return None
+        want_tx = self.out_w if sx < 0 else 0.0
+        want_ty = self.out_h if sy < 0 else 0.0
+        if abs(t[0] - want_tx) > 1e-6 or abs(t[1] - want_ty) > 1e-6:
+            return None
         if swapped:
             img = img.transpose(1, 0, 2)
+        if (src_w, src_h) != (self.out_w, self.out_h):
+            img = IW.resize_linear(img, self.out_w, self.out_h)
         if sx < 0:
             img = img[:, ::-1]
         if sy < 0:
             img = img[::-1]
         return np.ascontiguousarray(img)
+
+    def apply_image(self, img: np.ndarray) -> np.ndarray:
+        """The uint8 [H, W, 3] image under the map, [out_h, out_w, 3], as
+        the JAX package renders it with cv2: the axis-aligned path above,
+        else ``warp_affine_linear`` (cv2.warpAffine) on the pixel-center
+        matrix A(x) = M(x + 0.5) - 0.5 in float32."""
+        if img.dtype != np.uint8:
+            raise ValueError(f"AffineAug.apply_image takes uint8 images (the mapper's and the "
+                             f"server's), got {img.dtype}")
+        fast = self._axis_aligned_fast(img)
+        if fast is not None:
+            return fast
+        lin = self.matrix[:, :2]
+        a_img = np.hstack([lin, (lin @ np.array([0.5, 0.5]) + self.matrix[:, 2] - 0.5)[:, None]])
+        return IW.warp_affine_linear(img, a_img.astype(np.float32), self.out_w, self.out_h)
 
 
 def identity(w: int, h: int) -> AffineAug:

@@ -2,6 +2,7 @@
 
 Counterpart of ``dafne_tpu/engine/events.py`` (``TerminalWriter``,
 ``JSONWriter``, ``build_writers``); the TensorBoard writer is not ported.
+``mark`` and ``elapsed_ms`` time a span on a device's stream.
 """
 
 from __future__ import annotations
@@ -14,7 +15,25 @@ import time
 from collections import deque
 from typing import Dict
 
+import torch
+
 logger = logging.getLogger("dafne_torch")
+
+
+def mark(device: torch.device):
+    """A point in time on `device`'s stream (a CUDA event), or on the host
+    clock off the card."""
+    if device.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+    return time.perf_counter()
+
+
+def elapsed_ms(a, b) -> float:
+    """Milliseconds from ``mark`` `a` to ``mark`` `b` (CUDA events: once `b`
+    has completed)."""
+    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
 
 
 class EventWriter:

@@ -1,62 +1,85 @@
 """Request front end: images in, detection lists out.
 
-In the shape of ``tools/serve.py::DetectorService`` without HTTP and without
-resizing: each request image is placed top-left on the static canvas,
-requests are batched, run through the eval step, and each image's valid
-detections come back as ``{corners, hbox, score, class}`` dicts in original
-image coordinates, highest score first.
+In the shape of ``tools/serve.py::DetectorService`` (``preprocess``
+:203-223, ``detect``) without HTTP: each request image is converted to
+uint8 (float pixels clipped first), resized with the recipe's eval resize
+(``data/transforms.py::build_test_augmentation``, rendered by
+``AffineAug.apply_image``) and placed top-left on the static canvas,
+cropped there if it is larger, exactly as the eval mapper places it; the
+requests are batched and run through the eval step, and each image's
+valid detections come back, rescaled by scale_xy = (w / rw, h / rh) to
+the original image's coordinates, as ``{corners, hbox, score, class}``
+dicts, highest score first.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dafne_torch.data import transforms as T
 from dafne_torch.data.mapper import pad_target_hw
 from dafne_torch.engine.inference import make_eval_step
 
 
 class Predictor:
-    """Batches H x W x 3 uint8 request images onto the config's test canvas
-    (`pad_target_hw`)."""
+    """Batches H x W x 3 request images (uint8, or float in 0-255) onto the
+    config's test canvas (`pad_target_hw`)."""
 
     def __init__(self, model, cfg, batch: int):
+        self.cfg = cfg
         self.batch = int(batch)
         self.canvas_hw = pad_target_hw(cfg, train=False)
         self.device = next(model.parameters()).device
         self.step = make_eval_step(model, cfg, self.canvas_hw)
 
     def check(self, images: Sequence[np.ndarray]) -> None:
-        """Raise ValueError unless every request is an H x W x 3 uint8 image
-        that fits the canvas."""
-        ph, pw = self.canvas_hw
+        """Raise ValueError unless every request is a non-empty H x W x 3
+        image."""
         for i, img in enumerate(images):
-            if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
-                raise ValueError(f"request {i}: expected an H x W x 3 uint8 image, "
-                                 f"got {img.dtype} {img.shape}")
-            h, w = img.shape[:2]
-            if h == 0 or w == 0 or h > ph or w > pw:
-                raise ValueError(f"request {i}: image {h}x{w} does not fit the {ph}x{pw} canvas")
+            if img.ndim != 3 or img.shape[2] != 3:
+                raise ValueError(f"request {i}: expected an H x W x 3 image, got {img.shape}")
+            if img.shape[0] == 0 or img.shape[1] == 0:
+                raise ValueError(f"request {i}: zero-sized image {img.shape}")
 
-    def canvas(self, images: Sequence[np.ndarray]) -> torch.Tensor:
-        """[batch, H, W, 3] uint8 canvas on the model's device holding the
-        (checked) `images` top-left.  It is filled in pinned host memory and
-        copied without blocking; the model casts it to its compute dtype."""
-        host = torch.zeros((self.batch, *self.canvas_hw, 3), dtype=torch.uint8,
-                           pin_memory=self.device.type == "cuda")
+    def preprocess(self, img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(the resized uint8 image, its scale_xy [2] float32) of one
+        checked request: float pixels clipped to uint8 first, so that the
+        resize sees the dtype the eval mapper reads from disk."""
+        if img.dtype != np.uint8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
+        h, w = img.shape[:2]
+        resized = T.build_test_augmentation(self.cfg, w, h).apply_image(img)
+        rh, rw = resized.shape[:2]
+        return resized, np.asarray([w / rw, h / rh], np.float32)
+
+    def canvas(self, images: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """([batch, H, W, 3] uint8 canvas, [batch, 2] scale_xy), on the
+        model's device, of the (checked) `images`: each resized and placed
+        top-left, cropped to the canvas; unused slots stay black with scale
+        1.  The canvas is filled in pinned host memory and copied without
+        blocking; the model casts it to its compute dtype."""
+        pin = self.device.type == "cuda"
+        ph, pw = self.canvas_hw
+        host = torch.zeros((self.batch, ph, pw, 3), dtype=torch.uint8, pin_memory=pin)
+        scale = torch.ones((self.batch, 2), dtype=torch.float32, pin_memory=pin)
+        view = host.numpy()
         for i, img in enumerate(images):
-            host[i, : img.shape[0], : img.shape[1]] = torch.from_numpy(img)
-        return host.to(self.device, non_blocking=True)
+            resized, scale_xy = self.preprocess(img)
+            view[i, : resized.shape[0], : resized.shape[1]] = resized[:ph, :pw]
+            scale[i] = torch.from_numpy(scale_xy)
+        return (host.to(self.device, non_blocking=True),
+                scale.to(self.device, non_blocking=True))
 
     def detect(self, images: Sequence[np.ndarray]) -> List[List[Dict]]:
-        """One list of detections per request image."""
+        """One list of detections per request image, in its coordinates."""
         self.check(images)  # refuse before any batch runs
         results = []
         for start in range(0, len(images), self.batch):
             chunk = images[start : start + self.batch]
-            out = self.step(self.canvas(chunk))
+            out = self.step(*self.canvas(chunk))
             out = {k: v[: len(chunk)].cpu().numpy() for k, v in out.items()}
             for b in range(len(chunk)):
                 dets = [

@@ -5,8 +5,11 @@ device:
 
 - ``do_train`` (:288): ``auto_scale_config`` to a world size of 1, resume or
   bootstrap through ``engine/checkpoint.py``, the train records through
-  the port's loader onto the static train canvas (rendered on the device
-  when ``resolve_train_device_aug`` says so, :331-372), SOLVER.MAX_ITER steps,
+  the port's loader onto the static train canvas, or with a multi-scale
+  ladder onto each batch's bucket canvas (``TrainScaleBuckets``,
+  TPU.BUCKETED_TRAIN, :300-345: one train step per canvas, built on first
+  use, all sharing the model, optimizer and scheduler), rendered on the
+  device when ``resolve_train_device_aug`` says so (:331-372), SOLVER.MAX_ITER steps,
   the metric writers every 20 iterations (and at the first), the
   ``DEBUG.NAN_CHECK`` raise, a checkpoint every SOLVER.CHECKPOINT_PERIOD
   iterations and at the end, and ``do_test`` every TEST.EVAL_PERIOD.
@@ -29,16 +32,16 @@ import csv
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from dafne_torch.data import get_dataset, register_all_datasets
 from dafne_torch.data.loader import GT_KEYS, DataLoader
-from dafne_torch.data.mapper import eval_pad_hw, pad_target_hw
+from dafne_torch.data.mapper import eval_pad_hw, pad_target_hw, train_canvas_buckets
 from dafne_torch.data.registry import MetadataCatalog
 from dafne_torch.engine.checkpoint import Checkpointer
-from dafne_torch.engine.events import build_writers
+from dafne_torch.engine.events import build_writers, elapsed_ms, mark
 from dafne_torch.engine.inference import make_eval_step
 from dafne_torch.engine.optimizer import auto_scale_config, build_optimizer
 from dafne_torch.engine.trainer import make_train_step, resolve_train_device_aug
@@ -52,6 +55,14 @@ WRITE_PERIOD = 20
 # what a device-aug batch ships in place of "image" (engine/trainer.py::device_aug_image)
 DEVICE_AUG_KEYS = (("image_base", "aug_out_hw") + tuple("aug_" + k for k in WARP_KEYS)
                    + ("color_light", "color_w"))
+
+
+def batch_canvas_hw(batch) -> Tuple[int, int]:
+    """The canvas a train batch renders at: its images' on the host path,
+    its warp taps' on the device-aug path (JAX ``_batch_canvas_hw``)."""
+    if "image" in batch:
+        return tuple(batch["image"].shape[1:3])
+    return batch["aug_idx0_h"].shape[1], batch["aug_idx0_w"].shape[1]
 
 
 def to_device(batch, device) -> Dict:
@@ -199,26 +210,49 @@ def save_test_results(output_dir, dataset_name, step, res):
             w.writerow([step, dataset_name, k, f"{v:.4f}"])
 
 
-def do_train(cfg, model, records: List[dict], resume: bool = False) -> Dict[str, float]:
+def do_train(cfg, model, records: List[dict], resume: bool = False,
+             stats: Optional[dict] = None) -> Dict[str, float]:
     """Train `model` (on its device) over `records` (dicts with "image" and
     "annotations") up to SOLVER.MAX_ITER steps, from the newest checkpoint
     of OUTPUT_DIR when `resume`.  Returns the metrics of the last write, as
-    floats, and "checkpoint_s": the host seconds spent saving checkpoints."""
+    floats, and "checkpoint_s": the host seconds spent saving checkpoints.
+    A `stats` dict receives the bucket ladder ("canvases", None without
+    buckets), and per canvas the train steps built, the milliseconds of
+    each step run on it, in order, and each step's total loss ("steps":
+    {(h, w): {"builds", "ms", "loss"}}; CUDA events around the step on the
+    card, the host clock off it)."""
     cfg = auto_scale_config(cfg, 1)
     device = next(model.parameters()).device
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     pad_hw = pad_target_hw(cfg, train=True)
     batch_size = cfg.SOLVER.IMS_PER_BATCH
     max_iter = cfg.SOLVER.MAX_ITER
+    buckets = train_canvas_buckets(cfg, records)
+    if buckets is not None:
+        logger.info(f"bucketed ms train: canvases {buckets.canvases} (scales {buckets.sizes}, "
+                    f"sampling {buckets.sampling})")
     logger.info(f"device={device} batch={batch_size} pad_hw={pad_hw} records={len(records)}")
 
     optimizer, scheduler = build_optimizer(cfg, model)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     start_iter = checkpointer.resume_or_load(model, cfg, resume, optimizer, scheduler)
     loader = DataLoader(cfg, records, batch_size, seed=max(cfg.SEED, 0), pad_hw=pad_hw,
-                        pin_memory=device.type == "cuda", device_aug=resolve_train_device_aug(cfg))
+                        pin_memory=device.type == "cuda", device_aug=resolve_train_device_aug(cfg),
+                        buckets=buckets)
     logger.info(f"train augmentation rendered on the {'device' if loader.device_aug else 'host'}")
-    step = make_train_step(model, cfg, pad_hw, optimizer, scheduler, device_aug=loader.device_aug)
+    steps: Dict[Tuple[int, int], object] = {}
+
+    def get_step(hw):
+        """The train step of canvas `hw`, built on first use (its location
+        tables with it)."""
+        if hw not in steps:
+            steps[hw] = make_train_step(model, cfg, hw, optimizer, scheduler,
+                                        device_aug=loader.device_aug)
+            per_canvas.setdefault(hw, {"builds": 0, "marks": [], "loss": []})["builds"] += 1
+            logger.info(f"train step built for canvas {hw}")
+        return steps[hw]
+
+    per_canvas: Dict[Tuple[int, int], dict] = {}
     writers = build_writers(cfg.OUTPUT_DIR, max_iter)
     model.train()
     batches = iter(loader)
@@ -239,9 +273,17 @@ def do_train(cfg, model, records: List[dict], resume: bool = False) -> Dict[str,
     try:
         for it in range(start_iter, max_iter):
             t0 = time.perf_counter()
-            batch = to_device(next(batches), device)
+            host_batch = next(batches)
+            batch = to_device(host_batch, device)
             t_data += time.perf_counter() - t0
+            hw = batch_canvas_hw(host_batch)
+            step = get_step(hw)
+            if stats is not None:
+                start = mark(device)
             metrics = step(batch)
+            if stats is not None:
+                per_canvas[hw]["marks"].append((start, mark(device)))
+                per_canvas[hw]["loss"].append(metrics["loss/total"])
             if (it + 1) % WRITE_PERIOD == 0 or it == start_iter:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["data_time"] = t_data / (it - last_write)
@@ -260,4 +302,12 @@ def do_train(cfg, model, records: List[dict], resume: bool = False) -> Dict[str,
         batches.close()
         for w in writers:
             w.close()
+    if stats is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stats["canvases"] = buckets.canvases if buckets is not None else None
+        stats["steps"] = {hw: {"builds": v["builds"],
+                               "ms": [elapsed_ms(a, b) for a, b in v["marks"]],
+                               "loss": [float(x) for x in v["loss"]]}
+                          for hw, v in per_canvas.items()}
     return {**host, "checkpoint_s": save_s}

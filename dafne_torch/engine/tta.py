@@ -10,10 +10,15 @@ Counterpart of ``dafne_tpu/engine/tta.py`` (:46-296):
   TEST.AUG.MAX_SIZE), with an eval step per canvas whose batch keeps
   batch x canvas area within 4 x 1024^2 (at most 8); a short group is
   padded by repeating its last copy (``BucketedEvalSteps``);
-- the image goes to the device once, padded to the rounded base canvas,
-  and every copy is rendered there from it (``ops/device_warp.py``), a
-  group of copies with one transpose and one canvas at a time
-  (``BucketedEvalSteps.get_fused``);
+- with TPU.TTA_DEVICE_AUG the image goes to the device once, padded to
+  the rounded base canvas, and every separable copy is rendered there from
+  it (``ops/device_warp.py``), a group of copies with one transpose and one
+  canvas at a time (``BucketedEvalSteps.get_fused``);
+- the other copies (a TEST.AUG.ROTATION_ANGLES entry that is not a multiple
+  of 90 degrees), and every copy without TPU.TTA_DEVICE_AUG, render on the
+  host with ``AffineAug.apply_image`` (``data/image_warp.py``, cv2's bytes)
+  onto a uint8 canvas, top-left, grouped by the smallest canvas that holds
+  them (``BucketedEvalSteps.get``, JAX :174-235);
 - detected corners map back with the exact inverse affine in float64, and
   all copies merge by class-aware polygon NMS (class 5 merged into 4,
   ``utils/polyiou.py::poly_nms``) and a post-NMS top-k
@@ -21,11 +26,6 @@ Counterpart of ``dafne_tpu/engine/tta.py`` (:46-296):
   DATASETS.TEST dataset into OUTPUT_DIR/inference_tta/<dataset>, decoding
   a record's file (``data/image_io.py::read_image``, :282-283) where it
   carries no image.
-
-The JAX package's host path (cv2 warps, TPU.TTA_DEVICE_AUG False, and the
-fallback for copies that are not separable, i.e. TEST.AUG.ROTATION_ANGLES
-entries that are not multiples of 90 degrees) needs cv2 and is not
-ported: both raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import torch
 from dafne_torch.data import get_dataset
 from dafne_torch.data import transforms as T
 from dafne_torch.data.image_io import read_image
+from dafne_torch.engine.events import elapsed_ms, mark
 from dafne_torch.engine.inference import make_eval_step
 from dafne_torch.evaluation import build_evaluator
 from dafne_torch.ops.device_warp import (
@@ -86,23 +87,10 @@ _CANVAS_LADDER = (
 )
 
 
-def _mark(device: torch.device):
-    """A point in time on `device`'s stream (a CUDA event), or on the host
-    clock off the card."""
-    if device.type == "cuda":
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-    return time.perf_counter()
-
-
-def _elapsed_ms(a, b) -> float:
-    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
-
-
 class BucketedEvalSteps:
-    """Eval steps of `model` (on its device), one per (base canvas, ladder
-    canvas, transpose), built on first use."""
+    """Eval steps of `model` (on its device), one per ladder canvas for
+    host-rendered copies and one per (base canvas, ladder canvas,
+    transpose) for device-rendered ones, built on first use."""
 
     def __init__(self, cfg, model, max_batch: int = 8, area_budget: int = 4 * 1024 * 1024):
         self.cfg = cfg
@@ -122,22 +110,36 @@ class BucketedEvalSteps:
         # a copy larger than MAX_SIZE renders cropped onto the largest canvas
         return self.max_size
 
+    def _batch(self, side: int) -> int:
+        return int(min(self.max_batch, max(1, self.area_budget // (side * side))))
+
+    def get(self, needed_hw):
+        """(canvas_hw, step, batch) for host-rendered copies that need
+        `needed_hw`: ``step(images [batch, side, side, 3])``."""
+        side = self._canvas_for(max(needed_hw))
+        if side not in self._steps:
+            self._steps[side] = (make_eval_step(self.model, self.cfg, (side, side)),
+                                 self._batch(side))
+            logger.info(f"TTA: eval step for canvas {side}, batch {self._steps[side][1]}")
+        step, batch = self._steps[side]
+        return (side, side), step, batch
+
     def get_fused(self, base_hw, needed_hw, transpose: bool):
         """(canvas_hw, step, batch) for copies of a `base_hw` base image
         that need `needed_hw`: ``step(base_img, warps, marks=None)`` renders
         the copies (``device_warp``, `transpose`) and runs the canvas's eval
-        step on them; with a `marks` list it appends a ``_mark`` between
+        step on them; with a `marks` list it appends a ``mark`` between
         the two."""
         side = self._canvas_for(max(needed_hw))
         key = (tuple(base_hw), side, transpose)
         if key not in self._steps:
-            batch = int(min(self.max_batch, max(1, self.area_budget // (side * side))))
+            batch = self._batch(side)
             eval_core = make_eval_step(self.model, self.cfg, (side, side))
 
             def fused(base_img, warps, marks: Optional[list] = None):
                 images = device_warp(base_img, warps, transpose)
                 if marks is not None:
-                    marks.append(_mark(images.device))
+                    marks.append(mark(images.device))
                 return eval_core(images)
 
             self._steps[key] = (fused, batch)
@@ -151,38 +153,54 @@ def tta_inference_single(cfg, steps: BucketedEvalSteps, img: np.ndarray,
                          stats: Optional[dict] = None) -> Dict[str, np.ndarray]:
     """Every TTA copy of `img` [H, W, 3] through `steps`, merged: corners
     [D, 8] in `img`'s coordinates, scores, classes and valid.  A `stats`
-    dict receives the copies, the steps and the milliseconds of the
-    warp and of the eval steps per canvas (on the step's device: CUDA
-    events on the card), of the fetch, of the merge and of the whole call
-    (host clock), and the boxes into and out of the merge."""
+    dict receives the copies (and those rendered on the host), the steps
+    and the milliseconds of the device warp and of the eval steps per
+    canvas (on the step's device: CUDA events on the card), of the host
+    warps, of the fetch, of the merge and of the whole call (host clock),
+    and the boxes into and out of the merge."""
     t_call = time.perf_counter()
-    if not cfg.TPU.TTA_DEVICE_AUG:
-        raise NotImplementedError(
-            "TPU.TTA_DEVICE_AUG False renders TTA copies with host cv2 warps, which are not "
-            "ported; the copies render on the device")
     h, w = img.shape[:2]
     augs = build_tta_augs(cfg, w, h)
     groups: Dict[tuple, list] = {}
-    for aug in augs:
-        side = steps._canvas_for(max(aug.out_h, aug.out_w))
-        p = separable_warp_params(aug, w, h, (side, side))
-        if p is None:
-            raise NotImplementedError(
-                f"the TTA copy with matrix {np.round(aug.matrix, 6).tolist()} onto "
-                f"{aug.out_w}x{aug.out_h} (TEST.AUG.ROTATION_ANGLES "
-                f"{list(cfg.TEST.AUG.ROTATION_ANGLES)}) is not separable: a rotation that is "
-                "not a multiple of 90 degrees needs a host cv2 warp, which is not ported")
-        groups.setdefault((side, p.transpose), []).append((aug, p))
+    host_augs = augs
+    if cfg.TPU.TTA_DEVICE_AUG:
+        host_augs = []
+        for aug in augs:
+            side = steps._canvas_for(max(aug.out_h, aug.out_w))
+            p = separable_warp_params(aug, w, h, (side, side))
+            if p is None:
+                host_augs.append(aug)  # an arbitrary angle: the host warp
+            else:
+                groups.setdefault((side, p.transpose), []).append((aug, p))
 
     device = steps.device
-    rup = lambda v: int(-(-v // steps.div) * steps.div)  # noqa: E731
-    base_hw = (rup(h), rup(w))
-    base = np.zeros(base_hw + (3,), np.uint8 if img.dtype == np.uint8 else np.float32)
-    base[:h, :w] = img
-    base_dev = torch.from_numpy(base).to(device)
-
-    st = {"copies": len(augs), "steps": {}, "warp_ms": 0.0, "eval_ms": {}, "fetch_ms": 0.0}
+    st = {"copies": len(augs), "host_copies": len(host_augs), "steps": {}, "warp_ms": 0.0,
+          "host_warp_ms": 0.0, "eval_ms": {}, "fetch_ms": 0.0}
     parts = []
+
+    def run(side, call, chunk_augs, marks):
+        """One eval step over a padded chunk; its detections mapped back."""
+        det = call()
+        if stats is not None:
+            marks.append(mark(device))
+            t0 = time.perf_counter()
+        det = {k: det[k].cpu().numpy() for k in FETCH_KEYS}
+        if stats is not None:
+            st["fetch_ms"] += (time.perf_counter() - t0) * 1e3
+            st["eval_ms"][side] = st["eval_ms"].get(side, 0.0) + elapsed_ms(*marks[-2:])
+            st["steps"][side] = st["steps"].get(side, 0) + 1
+        for i, aug in enumerate(chunk_augs):
+            m = det["valid"][i]
+            corners = det["corners"][i][m].astype(np.float64)
+            parts.append((aug.invert_coords(corners.reshape(-1, 4, 2)).reshape(-1, 8),
+                          det["scores"][i][m], det["classes"][i][m]))
+
+    if groups:
+        rup = lambda v: int(-(-v // steps.div) * steps.div)  # noqa: E731
+        base_hw = (rup(h), rup(w))
+        base = np.zeros(base_hw + (3,), np.uint8 if img.dtype == np.uint8 else np.float32)
+        base[:h, :w] = img
+        base_dev = torch.from_numpy(base).to(device)
     for (side, transpose), items in groups.items():
         _, step, batch = steps.get_fused(base_hw, (side, side), transpose)
         for start in range(0, len(items), batch):
@@ -190,22 +208,28 @@ def tta_inference_single(cfg, steps: BucketedEvalSteps, img: np.ndarray,
             real = len(chunk)
             chunk = chunk + [chunk[-1]] * (batch - real)  # pad by repeating the last copy
             warps = warp_tensors(stack_warps([p for _, p in chunk]), device)
-            marks = [_mark(device)] if stats is not None else None
-            det = step(base_dev, warps, marks)
+            marks = [mark(device)] if stats is not None else None
+            run(side, lambda: step(base_dev, warps, marks), [a for a, _ in chunk[:real]], marks)
             if stats is not None:
-                marks.append(_mark(device))
-                t0 = time.perf_counter()
-            det = {k: det[k].cpu().numpy() for k in FETCH_KEYS}
-            if stats is not None:
-                st["fetch_ms"] += (time.perf_counter() - t0) * 1e3
-                st["warp_ms"] += _elapsed_ms(marks[0], marks[1])
-                st["eval_ms"][side] = st["eval_ms"].get(side, 0.0) + _elapsed_ms(*marks[1:])
-                st["steps"][side] = st["steps"].get(side, 0) + 1
-            for i in range(real):
-                m = det["valid"][i]
-                corners = det["corners"][i][m].astype(np.float64)
-                parts.append((chunk[i][0].invert_coords(corners.reshape(-1, 4, 2)).reshape(-1, 8),
-                              det["scores"][i][m], det["classes"][i][m]))
+                st["warp_ms"] += elapsed_ms(marks[0], marks[1])
+
+    # host-rendered copies, grouped by the smallest canvas that holds them
+    by_canvas: Dict[tuple, list] = {}
+    for aug in host_augs:
+        by_canvas.setdefault(steps.get((aug.out_h, aug.out_w)), []).append(aug)
+    for ((pad_h, pad_w), step, batch), items in by_canvas.items():
+        t0 = time.perf_counter()
+        canvases = np.zeros((len(items), pad_h, pad_w, 3), np.uint8)
+        for canvas, aug in zip(canvases, items):
+            warped = aug.apply_image(img)
+            canvas[:warped.shape[0], :warped.shape[1]] = warped[:pad_h, :pad_w]
+        st["host_warp_ms"] += (time.perf_counter() - t0) * 1e3
+        for start in range(0, len(items), batch):
+            idx = list(range(start, min(start + batch, len(items))))
+            idx += [idx[-1]] * (batch - len(idx))  # pad by repeating the last copy
+            images = torch.from_numpy(canvases[idx]).to(device)
+            marks = [mark(device)] if stats is not None else None
+            run(pad_h, lambda: step(images), items[start:start + batch], marks)
 
     t0 = time.perf_counter()
     corners = np.concatenate([c for c, _, _ in parts]) if parts else np.zeros((0, 8))

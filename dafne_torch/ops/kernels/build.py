@@ -33,7 +33,9 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# no multiply-add contraction on the host either: the host libraries write
+# each fused multiply-add they mean as std::fma
+CXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()  # the loader's threads may ask for a library at once

@@ -4,7 +4,8 @@
         [--eval-only] [--resume] [KEY VALUE ...]
 
 Counterpart of ``tools/train.py``: the config from the file (reading YAML
-needs PyYAML; dotted overrides alone do not) and the dotted overrides, ``default_setup``, the model on the card, then either
+needs PyYAML; dotted overrides alone do not) and the dotted overrides,
+``default_setup``, the model on the card, then either
 ``--eval-only`` (restore the newest checkpoint of OUTPUT_DIR, else
 MODEL.WEIGHTS, run ``do_test`` and, with TEST.AUG.ENABLED,
 ``engine/tta.py::do_test_with_tta`` into results["tta"]) or ``do_train``
@@ -50,10 +51,10 @@ def setup(args):
     return cfg
 
 
-def main(argv=None, device: str = "cuda", stats=None, tta_stats=None):
+def main(argv=None, device: str = "cuda", stats=None, tta_stats=None, train_stats=None):
     """Run the CLI on `device` (the card unless a caller asks for "cpu").
-    Returns do_test's results; `stats` is passed to the final do_test and
-    `tta_stats` to do_test_with_tta."""
+    Returns do_test's results; `stats` is passed to the final do_test,
+    `tta_stats` to do_test_with_tta and `train_stats` to do_train."""
     args = parse_args(argv)
     cfg = setup(args)
 
@@ -76,7 +77,7 @@ def main(argv=None, device: str = "cuda", stats=None, tta_stats=None):
         records = []
         for name in cfg.DATASETS.TRAIN:
             records += get_dataset(name, cfg)
-        do_train(cfg, model, records, resume=args.resume)
+        do_train(cfg, model, records, resume=args.resume, stats=train_stats)
         return do_test(cfg, model, cfg.OUTPUT_DIR, stats=stats)
     except Exception:
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)

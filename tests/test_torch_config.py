@@ -86,7 +86,7 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.data.image_io", "dafne_torch.data.datasets.dota",
               "dafne_torch.data.datasets.hrsc2016", "dafne_torch.data.datasets.ucas_aod",
               "dafne_torch.data.datasets.icdar15", "dafne_torch.utils.weight_import",
-              "dafne_torch.evaluation.result_merge"):
+              "dafne_torch.evaluation.result_merge", "dafne_torch.data.image_warp"):
         assert m in modules
 
 

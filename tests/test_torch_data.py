@@ -79,9 +79,10 @@ def test_transforms_match_jax():
         aug = T.hflip(32, 32).compose(T.rotation(32, 32, angle))
         np.testing.assert_array_equal(aug.apply_image(img), JT.AffineAug(
             aug.matrix, 32, 32).apply_image(img))
-    for bad in (T.rotation(32, 32, 30), T.resize(32, 32, 64, 64)):
-        with pytest.raises(NotImplementedError):
-            bad.apply_image(img)
+    # a general angle and a resize, which need cv2's warp and resize
+    for aug in (T.rotation(32, 32, 30), T.resize(32, 32, 64, 64)):
+        np.testing.assert_array_equal(aug.apply_image(img), JT.AffineAug(
+            aug.matrix, aug.out_w, aug.out_h).apply_image(img))
     np.testing.assert_array_equal(
         T.apply_color_augmentations(img, np.random.RandomState(3)),
         JT.apply_color_augmentations(img, np.random.RandomState(3)))

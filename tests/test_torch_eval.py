@@ -222,9 +222,17 @@ def test_eval_mapper_matches_jax(records128):
         assert set(got) == set(want)
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    _, resized = _data_cfgs(["INPUT.MIN_SIZE_TEST", "96"])
-    with pytest.raises(NotImplementedError):  # resizing at test time needs a warp
-        M.DatasetMapper(resized, (128, 128), train=False)(records128[0])
+    # a test-time resize (down, and up onto a larger canvas) renders as cv2's
+    for size, pad in ((96, 128), (200, 256)):
+        jresized, resized = _data_cfgs(["INPUT.MIN_SIZE_TEST", str(size), "INPUT.MAX_SIZE_TEST",
+                                        str(pad)])
+        ours = M.DatasetMapper(resized, (pad, pad), train=False)
+        theirs = JM.DatasetMapper(jresized, False, (pad, pad))
+        for rec in records128[:2]:
+            got, want = ours(rec), theirs(rec)
+            assert tuple(got["resized_hw"]) == (size, size)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_eval_pad_hw_and_test_augmentation_match_jax():

@@ -8,9 +8,9 @@ scores, duplicates and degenerate quads; ``tta_inference_single`` on the
 narrow R-50 with the same weights (``params_from_flax``) must match at
 least 99% of JAX's merged detections under the rule of
 ``tests/test_torch_eval.py`` (same class, score within 1e-4, corners
-within 1e-2).  The host cv2 path (TPU.TTA_DEVICE_AUG False) and copies
-that are not separable raise.  The CLI runs TTA after ``do_test`` with
-TEST.AUG.ENABLED on the CPU.
+within 1e-2).  The host path (TPU.TTA_DEVICE_AUG False, and copies that
+are not separable) runs through the host warps.  The CLI runs TTA after
+``do_test`` with TEST.AUG.ENABLED on the CPU.
 """
 
 import os
@@ -24,6 +24,7 @@ from dafne_tpu.models import build_model as jax_build_model
 from dafne_tpu.utils import polyiou as jax_polyiou
 from dafne_tpu.utils import polyiou_np as jax_polyiou_np
 
+from dafne_torch.data import image_warp as IW
 from dafne_torch.data.registry import DatasetCatalog, MetadataCatalog
 from dafne_torch.data.synthetic import GEN_CLASSES, load_synthetic_gen
 from dafne_torch.engine import tta
@@ -158,14 +159,27 @@ def test_tta_inference_single_matches_jax(scene):
 
 
 def test_unported_tta_paths_raise(scene):
+    """The host path: with TPU.TTA_DEVICE_AUG False every copy renders on
+    the host (resizes and flips through ``resize_linear``), and with it on
+    only the copies that are not separable (30 degrees: ``warp_affine_linear``);
+    a float image on the host path raises (``apply_image`` takes uint8)."""
     _, cfg = narrow_cfgs(LADDER + SMALL_NMS)
     steps = tta.BucketedEvalSteps(cfg, build_model(cfg, device="cpu").eval())
     _, host = narrow_cfgs(LADDER + SMALL_NMS + ["TPU.TTA_DEVICE_AUG", "False"])
-    with pytest.raises(NotImplementedError, match="TTA_DEVICE_AUG"):
-        tta.tta_inference_single(host, steps, scene["image"])
+    IW.reset_launch_counts()
+    stats = {}
+    tta.tta_inference_single(host, steps, scene["image"], stats)
+    assert stats["copies"] == stats["host_copies"] == 6 and stats["warp_ms"] == 0
+    assert stats["steps"] == {128: 1, 256: 1} and stats["host_warp_ms"] > 0
+    assert IW.resize_linear.launches == 3 and IW.warp_affine_linear.launches == 0
     _, rotated = narrow_cfgs(LADDER + SMALL_NMS + ["TEST.AUG.ROTATION_ANGLES", "(90.0, 30.0)"])
-    with pytest.raises(NotImplementedError, match="not separable"):
-        tta.tta_inference_single(rotated, steps, scene["image"])
+    IW.reset_launch_counts()
+    stats = {}
+    tta.tta_inference_single(rotated, steps, scene["image"], stats)
+    assert stats["copies"] == 10 and stats["host_copies"] == 4
+    assert IW.warp_affine_linear.launches == 4
+    with pytest.raises(ValueError, match="uint8"):
+        tta.tta_inference_single(host, steps, scene["image"].astype(np.float32))
 
 
 def test_cli_eval_only_runs_tta(tmp_path):

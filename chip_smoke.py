@@ -223,6 +223,33 @@ HRSC_STEPS = 12  # train steps through the CLI
 HRSC_SEED = 0  # SEED: its per-batch scale draws hit all 4 canvases of the ladder in 12 steps
 HRSC_TTA_SIZES = "(640, 800, 960)"  # the recipe's 16-scale TTA ladder, cut for time
 N_HRSC_TTA = 2  # test images through TTA
+# phase 17: the paper's ablation recipe, each other head or solver option, R-101
+ABLATION_RECIPE = os.path.join("configs", "paper", "ablation", "dota-1.0-base.yaml")
+ABL_STEPS = 3  # train steps of the ablation recipe through the CLI
+OPT_STEPS = 3  # train steps of each option
+OPTION_CASES = [  # one option at a time over the DOTA-1.0 1024 recipe
+    ("iterative corners", ["MODEL.DAFNE.CORNER_PREDICTION", "iterative"]),
+    ("offset corners", ["MODEL.DAFNE.CORNER_PREDICTION", "offset"]),
+    ("angle corners", ["MODEL.DAFNE.CORNER_PREDICTION", "angle"]),
+    ("merged center-to-corner", ["MODEL.DAFNE.MERGE_CORNER_CENTER_PRED", "True"]),
+    ("BN towers", ["MODEL.DAFNE.NORM", "BN"]),
+    ("SyncBN towers", ["MODEL.DAFNE.NORM", "SyncBN"]),
+    # without a norm the random head meets the random trunk's FPN features
+    # unnormalized: the first loss is ~1e4 and an unclipped step overflows
+    # (this phase on an H100 without the clip: loss/cls 8809, then NaN), so
+    # this case clips each group's gradient norm at 1
+    ("no-norm towers", ["MODEL.DAFNE.NORM", "none", "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+                        "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                        "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0"]),
+    ("Mish", ["MODEL.DAFNE.USE_RELU", "False"]),
+    ("TOP_MODULE conv", ["MODEL.TOP_MODULE.NAME", "conv"]),
+    ("Adam", ["SOLVER.OPTIMIZER", "adam"]),
+]
+R101_RECIPE = os.path.join("configs", "pre-trained", "dota-1.0_r101_ms.yaml")
+R101_STEPS = 8  # bucketed train steps through the CLI
+R101_SEED = 3  # SEED: its per-batch scale draws hit all 4 canvases of the ladder in 8 steps
+R101_TTA_SIZES = "(600, 1024)"  # the recipe's 9-scale TTA ladder, cut for time
+N_R101_EVAL = 4  # val tiles of the R-101 evaluation and TTA (DEBUG.OVERFIT_NUM_IMAGES)
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -436,10 +463,10 @@ def full_gts(rng, b, m):
             "gt_valid": torch.ones((b, m), dtype=torch.bool, device="cuda")}
 
 
-def check_assign(spec, tables, g, what, card):
-    """K3 against its plain version on the gts `g`: raises unless min_area
-    is bit-equal and argmin equal.  Returns (kernel ms, device ms, plain ms,
-    bound ms, bound_by, max |min_area diff|, (min_area, argmin))."""
+def assign_equal(spec, tables, g, what):
+    """K3 against its plain version on the gts `g` and a canvas's location
+    tables: raises unless min_area is bit-equal and argmin equal.  Returns
+    (max |min_area diff|, (min_area, argmin), the kernel's arguments)."""
     from dafne_torch.ops.kernels import assign as A
 
     _, locations, loc_strides, size_ranges = tables
@@ -453,6 +480,17 @@ def check_assign(spec, tables, g, what, card):
     if not torch.equal(km, pm) or arg_diff:
         raise SystemExit(f"assignment kernel disagrees with its plain version on {what}: "
                          f"max |min_area diff| {err}, {arg_diff} argmin differ")
+    return err, (km, ka), args
+
+
+def check_assign(spec, tables, g, what, card):
+    """``assign_equal``, then K3's times, pairs and bound on `g`.  Returns
+    (kernel ms, device ms, plain ms, bound ms, bound_by, max |min_area
+    diff|, (min_area, argmin))."""
+    from dafne_torch.ops.kernels import assign as A
+
+    err, (km, ka), args = assign_equal(spec, tables, g, what)
+    locations, loc_strides, size_ranges = tables[1:]
     (b, m), k = g["gt_valid"].shape, locations.shape[0]
     pairs = A.pair_counts(locations, loc_strides, size_ranges, g["gt_hbox"], g["gt_valid"], spec)
     (bound, by), valid_bound, no_fma = assign_bound(pairs, k, b, m)
@@ -493,6 +531,33 @@ def check_greedy(bits, s, keep_init, what):
     if diff:
         raise SystemExit(f"greedy kernel disagrees with the plain walk on {what}: {diff} entries")
     return k_kernel
+
+
+def nms_kernel_inputs(head, spec):
+    """The NMS kernels' input of one decode of the head outputs `head`, as
+    ``decode_detections`` builds it for `spec`'s path (grouped or global
+    cap): (corners, classes, keep_init)."""
+    from dafne_torch.ops.nms import grouped_nms_inputs, single_group_inputs, sorted_nms_inputs
+    from dafne_torch.ops.postprocess import nms_candidates
+
+    c = nms_candidates(head, spec)
+    if spec.nms_group_candidates > 0:
+        return single_group_inputs(*grouped_nms_inputs(
+            c["corners"], c["scores"], c["classes"], c["valid"], spec.class_merge,
+            spec.num_classes, spec.nms_group_candidates,
+            max(spec.nms_max_candidates, spec.post_nms_topk))[1:])
+    return sorted_nms_inputs(c["corners"], c["scores"], c["classes"], c["valid"],
+                             spec.class_merge, scores01=True)[1:]
+
+
+def hold_nms(head, spec, what):
+    """K1's bits against the packed plain S and greedy's keep-set against
+    the plain walk on one decode's NMS input.  Returns (rows, valid slots,
+    kept)."""
+    pc, pk, pv = nms_kernel_inputs(head, spec)
+    bits, s = check_k1(pc, pk, spec.nms_threshold, what)
+    keep = check_greedy(bits, s, pv, what)
+    return list(pk.shape), int(pv.sum()), int(keep.sum())
 
 
 def check_k2(corners, classes, what, card):
@@ -548,6 +613,41 @@ def gt_tensors(examples, device):
     from dafne_torch.data.loader import GT_KEYS
 
     return {k: torch.from_numpy(np.stack([e[k] for e in examples])).to(device) for k in GT_KEYS}
+
+
+def narrow_step_card_vs_cpu(ncfg, examples, seed):
+    """One train step of `ncfg`'s narrow float32 model at 256^2 on the CPU
+    (plain versions) and on the card (kernels), from the same weights and
+    the same batch of mapped `examples`.  Returns (share of locations with
+    equal labels, locations, {loss term: relative difference}, max |param
+    diff| after the step, max |running-statistic diff| over the largest
+    running statistic (0.0 without BN towers), the CPU's metrics)."""
+    from dafne_torch.engine.optimizer import build_optimizer
+    from dafne_torch.engine.trainer import batch_targets, make_location_tables, make_train_step
+    from dafne_torch.models import build_model
+    from dafne_torch.ops.targets import AssignmentSpec
+
+    results = {}
+    cpu_model = build_model(ncfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    for dev, m in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        nb = gt_tensors(examples, dev)
+        nb["image"] = torch.from_numpy(np.stack([e["image"] for e in examples])).to(dev)
+        nspec = AssignmentSpec.from_config(ncfg)
+        labels = batch_targets(nb, nspec, make_location_tables((256, 256), nspec, device=dev))[
+            "labels"].cpu()
+        optimizer, scheduler = build_optimizer(ncfg, m.train())
+        metrics = make_train_step(m, ncfg, (256, 256), optimizer, scheduler)(nb)
+        results[dev] = (labels, {k: float(v) for k, v in metrics.items()},
+                        {k: v.detach().cpu() for k, v in m.state_dict().items()})
+    (l_cpu, m_cpu, p_cpu), (l_gpu, m_gpu, p_gpu) = results["cpu"], results["cuda"]
+    same_labels = float((l_cpu == l_gpu).float().mean())
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+           for k in m_cpu if k.startswith("loss/") or k == "num_pos"}
+    running = [k for k in p_cpu if ".running_" in k and k.startswith("head.")]
+    p_err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu if k not in running)
+    stat_err = max((float((p_gpu[k] - p_cpu[k]).abs().max() / p_cpu[k].abs().max().clamp(min=1e-12))
+                    for k in running), default=0.0)
+    return same_labels, l_cpu.numel(), rel, p_err, stat_err, m_cpu
 
 
 # ---- 15. helpers: PNG files, a DOTA tree and Detectron2 checkpoints ----------
@@ -926,6 +1026,18 @@ def reference_values(state_dict, rng):
     return values
 
 
+def write_msra_pickle(values, path):
+    """An MSRA-style ImageNet pickle (``R-50.pkl``, ``R-101.pkl``) of the
+    backbone's `values`: numpy under Caffe2 names, with the classifier the
+    importer skips."""
+    blobs = {c2_name(n): v for n, v in values.items() if c2_name(n)}
+    blobs["fc1000_w"] = np.zeros((1000, 2048), np.float32)
+    blobs["fc1000_b"] = np.zeros(1000, np.float32)
+    with open(path, "wb") as f:
+        pickle.dump(blobs, f)
+    return path
+
+
 def write_reference_checkpoints(values, out_dir):
     """A Detectron2 DAFNe ``.pth`` of every value (torch tensors under the
     Detectron2 names, with the pixel buffers a real checkpoint holds) and an
@@ -941,13 +1053,7 @@ def write_reference_checkpoints(values, out_dir):
             model[d2_name(name)] = torch.from_numpy(v)
     pth = os.path.join(out_dir, "model_final.pth")
     torch.save({"model": model, "iteration": 90000}, pth)
-    blobs = {c2_name(n): v for n, v in values.items() if c2_name(n)}
-    blobs["fc1000_w"] = np.zeros((1000, 2048), np.float32)
-    blobs["fc1000_b"] = np.zeros(1000, np.float32)
-    pkl = os.path.join(out_dir, "R-50.pkl")
-    with open(pkl, "wb") as f:
-        pickle.dump(blobs, f)
-    return pkl, pth
+    return write_msra_pickle(values, os.path.join(out_dir, "R-50.pkl")), pth
 
 
 def main() -> int:
@@ -960,7 +1066,7 @@ def main() -> int:
     from dafne_torch.data import get_dataset, register_all_datasets
     from dafne_torch.data import image_io as IO
     from dafne_torch.data import image_warp as IW
-    from dafne_torch.data.mapper import eval_pad_hw, train_canvas_buckets
+    from dafne_torch.data.mapper import eval_pad_hw, pad_target_hw, train_canvas_buckets
     from dafne_torch.data.transforms import build_test_augmentation
     from dafne_torch.data.registry import DatasetCatalog, MetadataCatalog
     from dafne_torch.data.loader import DataLoader
@@ -979,6 +1085,7 @@ def main() -> int:
         flatten_head,
         make_location_tables,
         make_train_step,
+        resolve_train_device_aug,
     )
     from dafne_torch.models import build_model
     from dafne_torch.ops.kernels import assign as A
@@ -1368,31 +1475,13 @@ def main() -> int:
     nmap = DatasetMapper(ncfg, (256, 256))
     recs = load_synthetic_gen("train", 2, hw=256, max_boxes=24)
     examples = [nmap(r, np.random.RandomState(10 + i)) for i, r in enumerate(recs)]
-    results = {}
-    cpu_model = build_model(ncfg, device="cpu", generator=torch.Generator().manual_seed(4))
-    for dev, m in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
-        nb = gt_tensors(examples, dev)
-        nb["image"] = torch.from_numpy(np.stack([e["image"] for e in examples])).to(dev)
-        nspec = AssignmentSpec.from_config(ncfg)
-        labels = batch_targets(nb, nspec, make_location_tables((256, 256), nspec, device=dev))[
-            "labels"].cpu()
-        optimizer, scheduler = build_optimizer(ncfg, m.train())
-        metrics = make_train_step(m, ncfg, (256, 256), optimizer, scheduler)(nb)
-        results[dev] = (labels, {k: float(v) for k, v in metrics.items()},
-                        {k: v.detach().cpu() for k, v in m.state_dict().items()})
-    (l_cpu, m_cpu, p_cpu), (l_gpu, m_gpu, p_gpu) = results["cpu"], results["cuda"]
-    same_labels = float((l_cpu == l_gpu).float().mean())
-    rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
-           for k in m_cpu if k.startswith("loss/") or k == "num_pos"}
-    p_err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    same_labels, n_locs, rel, p_err, _, m_cpu = narrow_step_card_vs_cpu(ncfg, examples, 4)
     log(f"[train reference] narrow R-50 f32 batch 2 at 256x256, one step: labels equal on "
-        f"{same_labels:.6f} of {l_cpu.numel()} locations; loss relative differences "
+        f"{same_labels:.6f} of {n_locs} locations; loss relative differences "
         f"{json.dumps(rel)}; max |param diff| after the step {p_err:.3g}; losses (CPU) "
         f"{json.dumps({k: m_cpu[k] for k in rel})}")
     if same_labels < 0.999 or max(rel.values()) > 1e-4 or p_err > 1e-5:
         raise SystemExit("the card's train step disagrees with the CPU reference")
-
-    del cpu_model, results
     torch.cuda.empty_cache()
 
     # ---- 10. 2-D tiled suppression kernel (K2) vs plain ---------------------
@@ -2338,35 +2427,362 @@ def main() -> int:
     del smodel, predictor
     torch.cuda.empty_cache()
 
+    # ---- 17. the model's options: the ablation recipe, each option, R-101 ----
+    t17 = time.perf_counter()
+    opt_dir = os.path.join(ROOT, "output", "chip_smoke_options")
+    shutil.rmtree(opt_dir, ignore_errors=True)
+    os.environ["DAFNE_DATA_DIR"] = data_dir  # phase 15's DOTA tree
+    opt_launches = {"suppression_matrix": 0, "greedy_keep": 0, "assign_argmin": 0}
+    r101_launches = dict(opt_launches)
+
+    def hold_k3_on_loader(cfg_, records_, steps, what):
+        """K3 against its plain version on the first `steps` batches of the
+        train loader a CLI run of `cfg_` over `records_` draws (its seed,
+        its bucket ladder), each on its canvas's location tables."""
+        ladder_ = train_canvas_buckets(cfg_, records_)
+        loader_ = DataLoader(cfg_, records_, b, seed=max(cfg_.SEED, 0),
+                             pad_hw=pad_target_hw(cfg_, train=True),
+                             device_aug=resolve_train_device_aug(cfg_), buckets=ladder_)
+        spec_ = AssignmentSpec.from_config(cfg_)
+        tables_, err, canvases = {}, 0.0, []
+        batches_ = iter(loader_)
+        for i in range(steps):
+            hb = next(batches_)
+            hw = train_loop.batch_canvas_hw(hb)
+            if hw not in tables_:
+                tables_[hw] = make_location_tables(hw, spec_, device="cuda")
+            err = max(err, assign_equal(spec_, tables_[hw], to_device(hb, "cuda"),
+                                        f"{what} step {i} canvas {hw}")[0])
+            canvases.append(hw)
+        batches_.close()
+        return err, canvases
+
+    def bias_minus_2_checkpoint(cfg_, out_dir):
+        """A checkpoint after the newest in `out_dir` with the class bias
+        -2 (as phases 4, 11 and 16), so that the NMS inputs are full."""
+        m = build_model(cfg_, device="cuda")
+        ck = Checkpointer(out_dir)
+        at = ck.resume_or_load(m, cfg_, resume=True)
+        with torch.no_grad():
+            m.head.cls_logits.bias.fill_(-2.0)
+        ck.save(at + 1, m)
+        return m
+
+    # (a) the paper's ablation recipe through the CLI: train, then --eval-only
+    abl_dir = os.path.join(opt_dir, "ablation")
+    abl_recipe = os.path.join(ROOT, ABLATION_RECIPE)
+    abl_args = ["--config-file", abl_recipe, "SOLVER.REFERENCE_WORLD_SIZE", "0",
+                "SOLVER.IMS_PER_BATCH", str(b), "TPU.EVAL_BATCH", str(b), "MODEL.WEIGHTS", pkl,
+                "DATASETS.TRAIN", "('dota_1_train_1024',)", "DATASETS.TEST",
+                "('dota_1_val_1024',)", "OUTPUT_DIR", abl_dir]
+    acfg = get_cfg()
+    acfg.merge_from_file(abl_recipe)
+    acfg.merge_from_list(abl_args[2:])
+    register_all_datasets(acfg)
+    A.reset_launch_counts()
+    atrain = {}
+    t0 = time.perf_counter()
+    cli_main(abl_args + ["SOLVER.MAX_ITER", str(ABL_STEPS), "DATASETS.TEST", "()"],
+             train_stats=atrain)
+    torch.cuda.synchronize()
+    abl_train_s = time.perf_counter() - t0
+    abl_k3 = A.assign_argmin_cuda.launches
+    alosses = [x for v in atrain["steps"].values() for x in v["loss"]]
+    ams = [x for v in atrain["steps"].values() for x in v["ms"]]
+    if abl_k3 != ABL_STEPS or len(alosses) != ABL_STEPS or not all(np.isfinite(alosses)):
+        raise SystemExit(f"ablation train: K3 {abl_k3} for {ABL_STEPS} steps, losses {alosses}")
+    err, _ = hold_k3_on_loader(acfg, get_dataset("dota_1_train_1024", acfg), ABL_STEPS,
+                               "ablation train")
+    max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
+    amodel = bias_minus_2_checkpoint(acfg, abl_dir)
+    if hasattr(amodel.head, "ctrness") or hasattr(amodel.head, "center_pred"):
+        raise SystemExit("the ablation head has a centerness or a center branch")
+    K.reset_launch_counts()
+    astats = {}
+    t0 = time.perf_counter()
+    ares = cli_main(["--eval-only"] + abl_args, stats=astats)
+    abl_eval_s = time.perf_counter() - t0
+    abl_nms = {"suppression_matrix": K.suppression_bits_cuda.launches,
+               "greedy_keep": K.greedy_keep_bits_cuda.launches}
+    aval = get_dataset("dota_1_val_1024", acfg)
+    n_abatches = -(-len(aval) // b)
+    amap = ares["dota_1_val_1024"].get("mAP")
+    if set(abl_nms.values()) != {n_abatches} or not np.isfinite(amap):
+        raise SystemExit(f"ablation eval: launches {abl_nms} for {n_abatches} batches, mAP {amap}")
+    aspec = DecodeSpec.from_config(acfg)
+    held = []
+    with torch.inference_mode():
+        for i, batch in enumerate(DataLoader(acfg, aval, b, pad_hw=eval_pad_hw(acfg, aval),
+                                             train=False)):
+            held.append(hold_nms(amodel(batch["image"].cuda()), aspec, f"ablation eval batch {i}"))
+    ast = astats["dota_1_val_1024"]
+    log(f"[options] ablation recipe {ABLATION_RECIPE} (R-50, CORNER_PREDICTION direct, "
+        f"CENTERNESS none) through the CLI: {ABL_STEPS} train steps from the R-50.pkl on "
+        f"dota_1_train_1024 in {abl_train_s:.2f} s wall, step ms (CUDA events) "
+        f"{[round(x, 2) for x in ams]}, total loss {[round(x, 4) for x in alosses]}; K3 "
+        f"{abl_k3} launches, equal to its plain version on each step's batch; --eval-only on "
+        f"{ast['images']} val tiles (class bias -2) in {abl_eval_s:.2f} s wall, eval loop "
+        f"{ast['images'] / ast['loop_s']:.2f} img/s, mAP {amap:.4f}; K1 and greedy {abl_nms} "
+        f"launches, equal to their plain versions on every eval batch's NMS input (rows, "
+        f"valid, kept) {held} [{card}]")
+    for k in ("suppression_matrix", "greedy_keep"):
+        opt_launches[k] += abl_nms[k]
+    opt_launches["assign_argmin"] += abl_k3
+    del amodel
+    torch.cuda.empty_cache()
+
+    # (b) each other option alone on the DOTA-1.0 1024 recipe's model
+    omapper = DatasetMapper(train_cfg, (CANVAS, CANVAS))
+    obatches = []
+    for i in range(OPT_STEPS):
+        ex = [omapper(r, np.random.RandomState(170 + 8 * i + j))
+              for j, r in enumerate(train_records[(i % 2) * b:(i % 2 + 1) * b])]
+        ob = gt_tensors(ex, "cuda")
+        ob["image"] = torch.from_numpy(np.stack([e["image"] for e in ex])).cuda()
+        obatches.append(ob)
+    oimages = torch.from_numpy(np.stack([r["image"] for r in val_scenes[:b]])).cuda()
+    option_rows = {}
+    for name, extra in OPTION_CASES:
+        ocfg = copy.deepcopy(train_cfg)
+        ocfg.merge_from_list(extra)
+        t0 = time.perf_counter()
+        omodel = build_model(ocfg, device="cuda", generator=torch.Generator().manual_seed(17))
+        optimizer, scheduler = build_optimizer(ocfg, omodel)
+        ostep = make_train_step(omodel, ocfg, (CANVAS, CANVAS), optimizer, scheduler)
+        ospec = AssignmentSpec.from_config(ocfg)
+        otables = make_location_tables((CANVAS, CANVAS), ospec, device="cuda")
+        bn = ocfg.MODEL.DAFNE.NORM in ("BN", "SyncBN")
+        running = lambda: {k: v.clone() for k, v in omodel.state_dict().items()
+                           if k.startswith("head.") and ".running_" in k}
+        A.reset_launch_counts()
+        losses, stats_moved = [], []
+        for ob in obatches:
+            before = running()
+            metrics = ostep(ob)
+            after = running()
+            stats_moved.append(bool(after) and all(not torch.equal(after[k], before[k])
+                                                   for k in after))
+            losses.append({k: round(float(v), 4) for k, v in metrics.items()
+                           if k.startswith("loss/")})
+        k3 = A.assign_argmin_cuda.launches
+        for i, ob in enumerate(obatches):
+            err = assign_equal(ospec, otables, ob, f"option {name} step {i}")[0]
+            max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
+        if k3 != OPT_STEPS or not all(np.isfinite(v) for l in losses for v in l.values()):
+            raise SystemExit(f"option {name}: K3 {k3} for {OPT_STEPS} steps, losses {losses}")
+        if bn != bool(running()) or (bn and not all(stats_moved)):
+            raise SystemExit(f"option {name}: running statistics {len(running())}, moved "
+                             f"after each step {stats_moved}")
+        with torch.no_grad():
+            omodel.head.cls_logits.bias.fill_(-2.0)
+        stats_before = running()
+        estep = make_eval_step(omodel, ocfg, (CANVAS, CANVAS))
+        K.reset_launch_counts()
+        det = estep(oimages)
+        torch.cuda.synchronize()
+        nms_launched = (K.suppression_bits_cuda.launches, K.greedy_keep_bits_cuda.launches)
+        if nms_launched != (1, 1) or not torch.isfinite(det["corners"]).all():
+            raise SystemExit(f"option {name}: eval batch launches {nms_launched}")
+        with torch.inference_mode():
+            head = omodel(oimages)
+            rows = hold_nms(head, DecodeSpec.from_config(ocfg), f"option {name} eval batch")
+        extra_check = ""
+        if bn:
+            # the eval batch normalizes with the running statistics and leaves them
+            if not all(torch.equal(v, stats_before[k]) for k, v in running().items()):
+                raise SystemExit(f"option {name}: the eval batch moved the running statistics")
+            with torch.no_grad():
+                for k, v in stats_before.items():
+                    if k.endswith("running_mean"):
+                        omodel.state_dict()[k].add_(0.5)
+                moved = estep(oimages)
+                omodel.load_state_dict(stats_before, strict=False)
+            if torch.equal(moved["scores"], det["scores"]):
+                raise SystemExit(f"option {name}: the eval batch ignores the running statistics")
+            extra_check = "; running statistics moved by each step, used and kept by the eval"
+        if ocfg.MODEL.TOP_MODULE.NAME:
+            dim = ocfg.MODEL.TOP_MODULE.DIM
+            if [tuple(t.shape) for t in head["top_feats"]] != [(b, h, w, dim) for h, w in head["hw"]]:
+                raise SystemExit(f"option {name}: top_feats {[t.shape for t in head['top_feats']]}")
+            extra_check = f"; top_feats {dim} channels on every level"
+        if (head["center"][0] is None) != (ocfg.MODEL.DAFNE.CORNER_PREDICTION != "center-to-corner"):
+            raise SystemExit(f"option {name}: center output {head['center'][0] is None}")
+        option_rows[name] = {"s": round(time.perf_counter() - t0, 2), "losses": losses,
+                             "nms": rows}
+        log(f"[options] {name} ({' '.join(extra)}): {OPT_STEPS} train steps, losses {losses}; K3 "
+            f"{k3} launches, equal to its plain version on each step's batch; one eval batch of "
+            f"{b} (class bias -2): K1 and greedy once each, equal to their plain versions on its "
+            f"NMS input (rows, valid, kept) {rows}{extra_check}; "
+            f"{option_rows[name]['s']:.2f} s wall with the build and cuDNN's search [{card}]")
+        opt_launches["assign_argmin"] += k3
+        opt_launches["suppression_matrix"] += nms_launched[0]
+        opt_launches["greedy_keep"] += nms_launched[1]
+        del omodel, optimizer, scheduler, ostep, estep, head, det
+    del obatches, oimages
+    torch.cuda.empty_cache()
+
+    # (c) a narrow float32 BN-tower train step: card (kernels) against CPU (plain)
+    bcfg = get_cfg()
+    bcfg.merge_from_list(DOTA_1024 + NARROW + [
+        "MODEL.DAFNE.NORM", "BN", "SOLVER.WARMUP_ITERS", "0", "INPUT.MIN_SIZE_TRAIN", "(256,)",
+        "INPUT.MAX_SIZE_TRAIN", "256", "SOLVER.IMS_PER_BATCH", "2"])
+    bmap = DatasetMapper(bcfg, (256, 256))
+    bexamples = [bmap(r, np.random.RandomState(171 + i))
+                 for i, r in enumerate(load_synthetic_gen("train", 2, hw=256, max_boxes=24))]
+    same_labels, n_locs, rel, p_err, stat_err, m_cpu = narrow_step_card_vs_cpu(bcfg, bexamples, 18)
+    log(f"[options] narrow R-50 f32 with BN towers, batch 2 at 256x256, one step: labels equal "
+        f"on {same_labels:.6f} of {n_locs} locations; loss relative differences "
+        f"{json.dumps(rel)}; max |param diff| after the step {p_err:.3g}; running statistics "
+        f"after the step within {stat_err:.3g} of the largest; losses (CPU) "
+        f"{json.dumps({k: m_cpu[k] for k in rel})}")
+    if same_labels < 0.999 or max(rel.values()) > 1e-4 or p_err > 1e-5 or stat_err > 1e-4:
+        raise SystemExit("the card's BN-tower train step disagrees with the CPU reference")
+
+    # (d) the released R-101 recipe: bucketed training, then --eval-only with TTA
+    r101_dir = os.path.join(opt_dir, "r101")
+    r101_recipe = os.path.join(ROOT, R101_RECIPE)
+    rcfg = get_cfg()
+    rcfg.merge_from_file(r101_recipe)
+    # an MSRA R-101.pkl of seeded random backbone values, in place of the download
+    rbackbone = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(19))
+    rpkl = write_msra_pickle(
+        reference_values({k: v for k, v in rbackbone.state_dict().items()
+                          if k.startswith("backbone.")}, np.random.RandomState(19)),
+        os.path.join(opt_dir, "R-101.pkl"))
+    del rbackbone
+    r101_args = ["--config-file", r101_recipe, "SOLVER.REFERENCE_WORLD_SIZE", "0",
+                 "SOLVER.IMS_PER_BATCH", str(b), "TPU.EVAL_BATCH", str(b), "SEED", str(R101_SEED),
+                 "MODEL.WEIGHTS", rpkl, "DATASETS.TRAIN", "('dota_1_train_1024',)",
+                 "DATASETS.TEST", "('dota_1_val_1024',)", "OUTPUT_DIR", r101_dir]
+    rcfg.merge_from_list(r101_args[2:])
+    rrecords = get_dataset("dota_1_train_1024", rcfg)
+    rladder = train_canvas_buckets(rcfg, rrecords)
+    rdraw = np.random.RandomState(R101_SEED * 7919 + 13)  # the loader's per-batch stream
+    rdrawn = [rladder.draw(rdraw)[1] for _ in range(R101_STEPS)]
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rtrain = {}
+    t0 = time.perf_counter()
+    cli_main(r101_args + ["SOLVER.MAX_ITER", str(R101_STEPS), "DATASETS.TEST", "()"],
+             train_stats=rtrain)
+    torch.cuda.synchronize()
+    r101_train_s = time.perf_counter() - t0
+    r101_k3 = A.assign_argmin_cuda.launches
+    rpeak_train = torch.cuda.max_memory_allocated() / 2**30
+    rsteps = rtrain["steps"]
+    want_hits = {c: rdrawn.count(c) for c in set(rdrawn)}
+    rlosses = [x for v in rsteps.values() for x in v["loss"]]
+    if (r101_k3 != R101_STEPS or {c: len(v["ms"]) for c, v in rsteps.items()} != want_hits
+            or any(v["builds"] != 1 for v in rsteps.values()) or not all(np.isfinite(rlosses))):
+        raise SystemExit(f"R-101 train: K3 {r101_k3} for {R101_STEPS} steps; steps per canvas "
+                         f"{ {c: len(v['ms']) for c, v in rsteps.items()} }, drawn {want_hits}; "
+                         f"losses {rlosses}")
+    err, rcanvases = hold_k3_on_loader(rcfg, rrecords, R101_STEPS, "R-101 train")
+    max_err["assign_argmin"] = max(max_err["assign_argmin"], err)
+    if rcanvases != rdrawn:
+        raise SystemExit(f"R-101: the loader's canvases {rcanvases}, drawn {rdrawn}")
+    rsplit = {f"{h}x{w}": {"steps": len(v["ms"]), "first_ms": round(v["ms"][0], 2),
+                           "later_median_ms": (round(statistics.median(v["ms"][1:]), 2)
+                                               if len(v["ms"]) > 1 else None)}
+              for (h, w), v in sorted(rsteps.items())}
+    log(f"[r101] CLI --config-file {R101_RECIPE}, R-101 full width, 15 classes, batch {b}, "
+        f"SEED {R101_SEED}, {R101_STEPS} steps from an R-101.pkl on the ladder (h, w) "
+        f"{rladder.canvases} (scales {rladder.sizes}) in {r101_train_s:.2f} s wall; canvases "
+        f"drawn {rdrawn}; each canvas's step built once; step ms per canvas on CUDA events (the "
+        f"first apart: cuDNN's search) {json.dumps(rsplit)}; total loss per step in canvas "
+        f"order {[round(x, 4) for x in rlosses]}; K3 {r101_k3} launches, equal to its plain "
+        f"version on each step's batch; peak memory {rpeak_train:.2f} GiB (max_memory_allocated) "
+        f"[{card}]")
+    rmodel = bias_minus_2_checkpoint(rcfg, r101_dir)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rstats, rtta = {}, {}
+    reval_args = ["--eval-only"] + r101_args + ["DEBUG.OVERFIT_NUM_IMAGES", str(N_R101_EVAL),
+                                                 "TEST.AUG.MIN_SIZES", R101_TTA_SIZES]
+    t0 = time.perf_counter()
+    rres = cli_main(reval_args, stats=rstats, tta_stats=rtta)
+    torch.cuda.synchronize()
+    r101_eval_s = time.perf_counter() - t0
+    rpeak_eval = torch.cuda.max_memory_allocated() / 2**30
+    r101_nms = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                "greedy_keep": K.greedy_keep_bits_cuda.launches}
+    rst, rtt = rstats["dota_1_val_1024"], rtta["dota_1_val_1024"]
+    tta_steps = sum(sum(p["steps"].values()) for p in rtt["per_image"])
+    n_rbatches = -(-N_R101_EVAL // b)
+    copies = sorted({p["copies"] for p in rtt["per_image"]})
+    if (set(r101_nms.values()) != {n_rbatches + tta_steps} or rst["images"] != N_R101_EVAL
+            or rtt["images"] != N_R101_EVAL or not np.isfinite(rres["tta"]["dota_1_val_1024"]["mAP"])):
+        raise SystemExit(f"R-101 eval: launches {r101_nms} for {n_rbatches} batches and "
+                         f"{tta_steps} TTA eval steps; images {rst['images']}, {rtt['images']}")
+    revecfg = copy.deepcopy(rcfg)
+    revecfg.merge_from_list(reval_args[3:])
+    rval = get_dataset("dota_1_val_1024", revecfg)
+    with torch.inference_mode():
+        rbatch = next(iter(DataLoader(revecfg, rval, b, pad_hw=eval_pad_hw(revecfg, rval),
+                                      train=False)))
+        rrows = hold_nms(rmodel(rbatch["image"].cuda()), DecodeSpec.from_config(revecfg),
+                         "the R-101 eval batch")
+    r_tta_split = {"s_per_image": round(rtt["loop_s"] / rtt["images"], 3),
+                   "wall_ms": [round(p["wall_ms"], 1) for p in rtt["per_image"]],
+                   "merge_ms": [round(p["merge_ms"], 1) for p in rtt["per_image"]],
+                   "eval_steps": rtt["per_image"][0]["steps"],
+                   "boxes_in": [p["boxes_in"] for p in rtt["per_image"]],
+                   "boxes_out": [p["boxes_out"] for p in rtt["per_image"]]}
+    log(f"[r101] CLI --eval-only (class bias -2) on {N_R101_EVAL} dota_1_val_1024 tiles "
+        f"(DEBUG.OVERFIT_NUM_IMAGES) in {r101_eval_s:.2f} s wall: eval loop "
+        f"{rst['images'] / rst['loop_s']:.2f} img/s (host clock, the first batch pays cuDNN's "
+        f"search), mAP {rres['dota_1_val_1024'].get('mAP', float('nan')):.4f}; TTA (FLIP: HFLIP "
+        f"and VFLIP, MIN_SIZES {R101_TTA_SIZES}, the recipe's 9-scale ladder cut for time, "
+        f"{copies} copies per image) {json.dumps(r_tta_split)}, mAP "
+        f"{rres['tta']['dota_1_val_1024']['mAP']:.4f}; K1 and greedy {r101_nms} launches, once "
+        f"per eval batch and TTA eval step, equal to their plain versions on the eval batch's "
+        f"NMS input (rows, valid, kept) {rrows}; peak memory {rpeak_eval:.2f} GiB [{card}]")
+    r101_launches = {"suppression_matrix": r101_nms["suppression_matrix"],
+                     "greedy_keep": r101_nms["greedy_keep"], "assign_argmin": r101_k3}
+    del rmodel
+    torch.cuda.empty_cache()
+    log(f"[options] phase 17 wall time {time.perf_counter() - t17:.1f} s; launches: options "
+        f"{opt_launches}, r101 {r101_launches} [{card}]")
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
          "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"]
          + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"]
-         + hrsc_nms_launches,
+         + hrsc_nms_launches + opt_launches["suppression_matrix"]
+         + r101_launches["suppression_matrix"],
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
                               "files": files_launches["suppression_matrix"],
-                              "hrsc": hrsc_nms_launches},
+                              "hrsc": hrsc_nms_launches,
+                              "options": opt_launches["suppression_matrix"],
+                              "r101": r101_launches["suppression_matrix"]},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
-         + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches,
+         + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches
+         + opt_launches["greedy_keep"] + r101_launches["greedy_keep"],
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
                               "files": files_launches["greedy_keep"],
-                              "hrsc": hrsc_nms_launches},
+                              "hrsc": hrsc_nms_launches,
+                              "options": opt_launches["greedy_keep"],
+                              "r101": r101_launches["greedy_keep"]},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35",
-         "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3,
+         "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3
+         + opt_launches["assign_argmin"] + r101_launches["assign_argmin"],
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
-                              "files": files_launches["assign_argmin"], "hrsc": hrsc_k3},
+                              "files": files_launches["assign_argmin"], "hrsc": hrsc_k3,
+                              "options": opt_launches["assign_argmin"],
+                              "r101": r101_launches["assign_argmin"]},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",

@@ -3,15 +3,15 @@
 Counterpart of ``dafne_tpu/engine/optimizer.py``: the Detectron2
 WarmupMultiStepLR (``warmup_multistep_schedule`` :31) as a ``LambdaLR``
 factor; the labels of ``_param_labels`` / ``_freeze_labels`` (:57/:80) as
-``torch.optim.SGD`` param groups "default", "bias" and "norm",
+the optimizer's param groups "default", "bias" and "norm",
 with frozen parameters set to ``requires_grad=False``; ``build_optimizer``
 (:97) with ``SOLVER.CLIP_GRADIENTS``; and ``auto_scale_config`` (:140).
 
 Labels are computed on each parameter's flax path (conv ``weight`` is the
-flax ``kernel``, GroupNorm ``weight`` its ``scale``), with the JAX rules in
+flax ``kernel``, a norm's ``weight`` its ``scale``), with the JAX rules in
 their order: backbone norm leaves and running stats are frozen, then any
-``bias`` is "bias" (GroupNorm's too), then norm-module leaves and ``scale``
-are "norm", the rest "default" (``head.scales`` too); at ``FREEZE_AT`` f
+``bias`` is "bias" (the head norms' too), then norm-module leaves and
+``scale`` are "norm" (GroupNorm's and the per-level BatchNorms'), the rest "default" (``head.scales`` too); at ``FREEZE_AT`` f
 the stem and stages res2..res<f> are frozen.
 
 The update equals the optax chain per group: clip (per group, like optax's
@@ -20,7 +20,12 @@ trace starting at zero, then ``-lr(step)``.  ``torch.optim.SGD`` with
 ``dampening=0`` adds the decay to the gradient before the momentum, and
 ``LambdaLR`` gives step 0 the schedule's value at 0, so only the clip
 happens outside it: ``clip_gradients_`` runs after ``backward`` and before
-``step``.
+``step``.  SOLVER.OPTIMIZER "adam" is JAX's chain clip ->
+``add_decayed_weights`` (L2 added to the gradient, not AdamW's decoupled
+decay) -> ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
+bias-corrected) -> ``-lr(step)``: ``torch.optim.Adam`` with the group's
+``weight_decay`` is that chain.  JAX takes any other name as SGD with
+momentum; the port raises for a name that is neither "sgd" nor "adam".
 """
 
 from __future__ import annotations
@@ -98,8 +103,10 @@ def build_optimizer(cfg, model: nn.Module):
     ``clip_gradients_(optimizer, cfg)`` between backward and step; step the
     scheduler after each optimizer step."""
     s = cfg.SOLVER
-    if s.OPTIMIZER.lower() != "sgd":
-        raise NotImplementedError(f"SOLVER.OPTIMIZER {s.OPTIMIZER!r} is not ported (sgd is)")
+    kind = s.OPTIMIZER.lower()
+    if kind not in ("sgd", "adam"):
+        raise NotImplementedError(f"SOLVER.OPTIMIZER {s.OPTIMIZER!r} is not ported (sgd and "
+                                  "adam are)")
     labels = param_labels(cfg, model)
     hyper = {
         "default": (s.BASE_LR, s.WEIGHT_DECAY),
@@ -116,8 +123,11 @@ def build_optimizer(cfg, model: nn.Module):
         {"params": ps, "name": g, "lr": hyper[g][0], "weight_decay": hyper[g][1]}
         for g, ps in groups.items() if ps
     ]
-    optimizer = torch.optim.SGD(param_groups, momentum=s.MOMENTUM, dampening=0.0,
-                                nesterov=s.NESTEROV)
+    if kind == "adam":
+        optimizer = torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        optimizer = torch.optim.SGD(param_groups, momentum=s.MOMENTUM, dampening=0.0,
+                                    nesterov=s.NESTEROV)
     # the schedule at base 1.0 is the factor of each group's own base LR
     factor = warmup_multistep_schedule(1.0, s.STEPS, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS,
                                        s.WARMUP_METHOD)

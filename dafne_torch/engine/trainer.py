@@ -12,6 +12,9 @@ and the step's ``lr`` as a float.  Assignment runs inside the step, on
 the step's device: one launch of the assignment kernel per step on the
 card.  With ``device_aug`` (``TPU.TRAIN_DEVICE_AUG``) the step first
 renders the augmented canvas on the device from the batch's base images.
+The step's one forward runs with ``train=True``, so a model with BN towers
+moves its running statistics once per step, as JAX's
+``mutable=["batch_stats"]`` apply does.
 ``TPU.HOST_ASSIGN`` is not ported and raises when set True.
 """
 
@@ -52,9 +55,11 @@ def make_location_tables(image_hw, spec: AssignmentSpec, device=None):
 
 def flatten_head(out, num_classes: int):
     """The model's per-level NHWC outputs as (logits [N, K, C], corners
-    [N, K, 8], center [N, K, 2], ctrness [N, K])."""
+    [N, K, 8], center [N, K, 2] or None (no center but center-to-corner),
+    ctrness [N, K])."""
+    center = None if out["center"][0] is None else flatten_levels(out["center"], 2)
     return (flatten_levels(out["logits"], num_classes), flatten_levels(out["corners"], 8),
-            flatten_levels(out["center"], 2), flatten_levels(out["ctrness"], 1)[..., 0])
+            center, flatten_levels(out["ctrness"], 1)[..., 0])
 
 
 def batch_targets(batch, assign_spec: AssignmentSpec, location_tables):
@@ -65,9 +70,11 @@ def batch_targets(batch, assign_spec: AssignmentSpec, location_tables):
 
 
 def compute_losses(model, batch, assign_spec: AssignmentSpec, loss_spec: LossSpec,
-                   location_tables) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """(losses, head outputs) of a batch {"image" [N, H, W, 3], gt_* [N, M, ...]}."""
-    out = model(batch["image"])
+                   location_tables, train: bool = False) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """(losses, head outputs) of a batch {"image" [N, H, W, 3], gt_* [N, M, ...]}.
+    `train` runs the model's forward in train mode: BN towers normalize with
+    the batch's statistics and move their running ones, once per call."""
+    out = model(batch["image"], train=train)
     logits, corners, center, ctrness = flatten_head(out, loss_spec.num_classes)
     targets = batch_targets(batch, assign_spec, location_tables)
     return dafne_losses(logits, corners, center, ctrness, targets, loss_spec), out
@@ -140,7 +147,7 @@ def make_train_step(model, cfg, image_hw: Tuple[int, int], optimizer, scheduler,
         if device_aug:
             batch = {**batch, "image": device_aug_image(batch, color_aug)}
         optimizer.zero_grad(set_to_none=True)
-        losses, _ = compute_losses(model, batch, assign_spec, loss_spec, tables)
+        losses, _ = compute_losses(model, batch, assign_spec, loss_spec, tables, train=True)
         loss = losses["loss/total"]
         loss.backward()
         clip_gradients_(optimizer, cfg)

@@ -1,5 +1,7 @@
 """Model builder: config -> OneStageDetector, counterpart of
-``dafne_tpu/models/build.py`` for the ResNet backbone."""
+``dafne_tpu/models/build.py`` for the ResNet backbone: every head option
+and the TOP_MODULE conv pass through; the other backbones, the
+anti-aliased ResNet and deformable head towers (``DAFNeHead``) raise."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from torch import nn
 
 from dafne_torch.models.fpn import FPN
 from dafne_torch.models.head import DAFNeHead
-from dafne_torch.models.layers import Conv2d
+from dafne_torch.models.layers import BatchNorm, Conv2d
 from dafne_torch.models.one_stage_detector import OneStageDetector
 from dafne_torch.models.resnet import ResNet
 
@@ -30,7 +32,6 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None)
         "MODEL.BACKBONE.ANTI_ALIAS": cfg.MODEL.BACKBONE.ANTI_ALIAS,
         "MODEL.RESNETS.NORM": cfg.MODEL.RESNETS.NORM != "FrozenBN",
         "MODEL.RESNETS.RES5_DILATION": cfg.MODEL.RESNETS.RES5_DILATION != 1,
-        "MODEL.TOP_MODULE": bool(cfg.MODEL.TOP_MODULE.NAME),
     }
     for key, bad in unported.items():
         if bad:
@@ -56,9 +57,14 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None)
         merge_corner_center_pred=d.MERGE_CORNER_CENTER_PRED, centerness=d.CENTERNESS,
         ctr_on_reg=d.CTR_ON_REG, use_deformable=d.USE_DEFORMABLE, use_relu=d.USE_RELU,
     )
+    top = cfg.MODEL.TOP_MODULE
+    if top.NAME not in ("", "conv"):
+        raise ValueError(f"Unknown MODEL.TOP_MODULE.NAME {top.NAME!r}")
+    top_module = (Conv2d(cfg.MODEL.FPN.OUT_CHANNELS, top.DIM, 3, padding=1)
+                  if top.NAME == "conv" else None)
     model = OneStageDetector(
         backbone, fpn, head, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, d.IN_FEATURES,
-        dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE],
+        dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE], top_module=top_module,
     )
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model.to(device).eval()
@@ -67,15 +73,17 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None)
 @torch.no_grad()
 def init_weights(model: OneStageDetector, generator: torch.Generator) -> None:
     """The JAX package's initializers: backbone convs He-normal on fan-out
-    (the stem LeCun-normal), FPN convs uniform on fan-in, head convs
-    normal(0.01) with zero bias and the focal prior on the class bias."""
+    (the stem and the TOP_MODULE conv LeCun-normal), FPN convs uniform on
+    fan-in, head convs normal(0.01) with zero bias and the focal prior on
+    the class bias; GN and BN affines 1 and 0, BN running mean 0 and
+    variance 1."""
     for name, m in model.named_modules():
         if not isinstance(m, Conv2d):
             continue
         w = m.weight
         fan_in = w.shape[1] * w.shape[2] * w.shape[3]
         fan_out = w.shape[0] * w.shape[2] * w.shape[3]
-        if name == "backbone.stem_conv1":
+        if name in ("backbone.stem_conv1", "top_module"):
             w.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
         elif name.startswith("backbone."):
             w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
@@ -88,6 +96,9 @@ def init_weights(model: OneStageDetector, generator: torch.Generator) -> None:
             m.bias.zero_()
     model.head.cls_logits.bias.fill_(model.head.prior_bias)
     for m in model.modules():
-        if isinstance(m, nn.GroupNorm):
+        if isinstance(m, (nn.GroupNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        if isinstance(m, BatchNorm):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

@@ -50,3 +50,49 @@ class FrozenBN(nn.Module):
         mul = (self.weight * inv).to(x.dtype)
         add = (self.bias - self.running_mean * self.weight * inv).to(x.dtype)
         return x * mul[:, None, None] + add[:, None, None]
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """Mish, x * tanh(softplus(x)): the towers' activation under
+    MODEL.DAFNE.USE_RELU False (``dafne_tpu/models/head.py:44-47``)."""
+    return F.mish(x)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+
+    ``forward(x, train)``: with `train` the batch's statistics normalize and
+    the running ones move, ``running = 0.9 * running + 0.1 * batch``;
+    without it the running statistics normalize (flax's
+    ``use_running_average = not train``).  As flax 0.12.3's
+    ``_compute_stats`` (``use_fast_variance``, ``force_float32_reductions``)
+    the statistics are at least float32 whatever the compute dtype, the variance is
+    E[x^2] - E[x]^2 clipped at 0, and the running variance takes that
+    biased variance.  ``F.batch_norm`` would take the unbiased one, in two
+    passes, so this is written out; there is no ``num_batches_tracked``.
+    The output is in the input's dtype."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            mean = xf.mean((0, 2, 3))
+            mean2 = (xf * xf).mean((0, 2, 3))
+            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)

@@ -17,10 +17,12 @@ by its extension as the JAX package reads it.
 
 ``_map_key`` keeps the JAX package's map from a reference name to a flax
 path, and ``_state_key`` turns that path into the port's name (``kernel``
-and ``scale`` become ``weight``).  Torch checkpoints are already OIHW, so
-no conv kernel is transposed.  A tensor whose shape differs from its
-target is skipped (or raises with ``strict``); unmatched reference keys
-and unfilled targets are reported, so gaps are visible.
+and ``scale`` become ``weight``, the BN towers' ``batch_stats`` leaves
+``mean`` and ``var`` become ``running_mean`` and ``running_var``).  Torch
+checkpoints are already OIHW, so no conv kernel is transposed.  A tensor
+whose shape differs from its target is skipped (or raises with
+``strict``); unmatched reference keys and unfilled targets are reported,
+so gaps are visible.
 """
 
 from __future__ import annotations
@@ -185,8 +187,8 @@ def _map_key(key: str, tower_strides: Optional[Dict[str, int]] = None
         return ("fpn", f"p{m[1]}", leaf), kind
 
     # DAFNe head.  BN towers keep one BatchNorm per FPN level
-    # (`tower.{3i+1}.{level}.{leaf}`); the port's towers are GN, so these
-    # map to paths it does not have and are reported unmatched.
+    # (`tower.{3i+1}.{level}.{leaf}`): norm{i}_level{level}, its running
+    # statistics flax's batch_stats leaves mean and var.
     m = re.match(r"proposal_generator\.dafne_head\.(cls|corners|center|share)_tower\."
                  r"(\d+)\.(\d+)\.(weight|bias|running_mean|running_var|num_batches_tracked)$", k)
     if m:
@@ -226,7 +228,8 @@ def _map_key(key: str, tower_strides: Optional[Dict[str, int]] = None
 def _state_key(path: Tuple) -> str:
     """A flax path -> the port's state-dict name."""
     *module, leaf = path
-    return ".".join([*module, {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)])
+    names = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+    return ".".join([*module, names.get(leaf, leaf)])
 
 
 def import_state_dict(sd: Dict[str, np.ndarray], target: Dict[str, torch.Tensor],

@@ -2,15 +2,18 @@
 
 The port's module names follow the flax tree, so the mapping is by name:
 conv ``kernel`` [kh, kw, in, out] (HWIO) becomes ``weight`` [out, in, kh, kw]
-(OIHW), GroupNorm ``scale`` becomes ``weight``, and the FrozenBN leaves and
-``head/scales`` keep their names.  The input is the flax tree as nested
+(OIHW), a norm's ``scale`` (GroupNorm, the head's BatchNorm) becomes
+``weight``, and the FrozenBN leaves and ``head/scales`` keep their names.
+The BN towers' running statistics live in flax's ``batch_stats``
+collection (``mean``, ``var``); they become ``running_mean`` and
+``running_var`` of the same module.  The input is the flax tree as nested
 dicts of numpy arrays (``flax.core.unfreeze`` + ``np.asarray`` on the caller's
 side); nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -25,10 +28,17 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield path, v
 
 
-def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax param tree {"backbone": {...}, "fpn": {...}, "head": {...}} ->
-    the port's state dict, to load with ``strict=True``."""
+def params_from_flax(params: Dict[str, Any],
+                     batch_stats: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """Flax param tree {"backbone": {...}, "fpn": {...}, "head": {...}} (and
+    a model with BN towers: its ``batch_stats``) -> the port's state dict,
+    to load with ``strict=True``."""
     out = {}
+    for path, value in _flatten(batch_stats or {}):
+        module, _, leaf = path.rpartition(".")
+        if leaf not in ("mean", "var"):
+            raise ValueError(f"{path}: expected a BatchNorm mean or var in batch_stats")
+        out[f"{module}.running_{leaf}"] = torch.from_numpy(np.array(value, dtype=np.float32))
     for path, value in _flatten(params):
         a = np.asarray(value, dtype=np.float32)
         module, _, leaf = path.rpartition(".")

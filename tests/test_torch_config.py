@@ -62,6 +62,27 @@ def test_recipes_merge_like_jax(recipe):
         assert a == b, key
 
 
+NARROW_BUILD = ["MODEL.RESNETS.STEM_OUT_CHANNELS", "8", "MODEL.RESNETS.WIDTH_PER_GROUP", "4",
+                "MODEL.RESNETS.RES2_OUT_CHANNELS", "16", "MODEL.FPN.OUT_CHANNELS", "16",
+                "TPU.COMPUTE_DTYPE", "float32"]
+
+
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_every_recipe_builds_a_model(recipe):
+    """Every config in configs/ builds the port's model (narrowed), its head
+    options, depth and classes as the recipe sets them."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", recipe))
+    cfg.merge_from_list(NARROW_BUILD)
+    model = build_model(cfg, device="cpu")
+    d = cfg.MODEL.DAFNE
+    assert model.head.cls_logits.weight.shape[0] == d.NUM_CLASSES
+    assert model.head.corner_prediction == d.CORNER_PREDICTION
+    assert hasattr(model.head, "ctrness") == (d.CENTERNESS != "none")
+    res4 = sum(n.startswith("res4_") for n, _ in model.backbone.named_children())
+    assert res4 == {50: 6, 101: 23}[cfg.MODEL.RESNETS.DEPTH]
+
+
 def test_port_imports_nothing_of_jax():
     """Every dafne_torch module and chip_smoke import with jax, flax, optax,
     dafne_tpu, cv2, PIL and yaml blocked."""

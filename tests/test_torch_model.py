@@ -108,11 +108,13 @@ def test_params_from_flax_fills_every_key():
 
 
 def test_unported_options_raise():
-    _, tcfg = narrow_cfgs(["MODEL.DAFNE.CORNER_PREDICTION", "direct"])
-    with pytest.raises(NotImplementedError):
+    """What is still unported raises: deformable towers and the other
+    backbones (the head options are ported, tests/test_torch_head_options.py)."""
+    _, tcfg = narrow_cfgs(["MODEL.DAFNE.USE_DEFORMABLE", "True"])
+    with pytest.raises(NotImplementedError, match="USE_DEFORMABLE"):
         build_model(tcfg, device="cpu")
-    _, tcfg = narrow_cfgs(["MODEL.DAFNE.NORM", "BN"])
-    with pytest.raises(NotImplementedError):
+    _, tcfg = narrow_cfgs(["MODEL.BACKBONE.NAME", "build_dafne_dla_fpn_backbone"])
+    with pytest.raises(NotImplementedError, match="BACKBONE.NAME"):
         build_model(tcfg, device="cpu")
 
 

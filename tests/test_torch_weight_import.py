@@ -4,10 +4,11 @@ The port's ``utils/weight_import.py`` fills the port's state dict; the JAX
 package's fills the flax tree, which ``utils/weights.py::params_from_flax``
 turns into the port's names.  On the same checkpoint files (the complete
 key inventories of ``tests/test_weight_import_exhaustive.py`` at depths 50
-and 101, a DDP ``module.`` prefix, no-norm towers, an MSRA ``R-50.pkl``)
-the two must give equal tensors, exactly.  A narrow model imported both
-ways gives the same forward within f32 atol 1e-3, rtol 1e-4 (the
-tolerance of ``tests/test_full_forward_parity.py``).
+and 101, a DDP ``module.`` prefix, no-norm towers, an MSRA ``R-50.pkl``,
+per-level BN towers and a ``top_module`` conv) the two must give equal
+tensors, exactly.  A narrow model imported both ways gives the same
+forward within f32 atol 1e-3, rtol 1e-4 (the tolerance of
+``tests/test_full_forward_parity.py``).
 """
 
 import pickle
@@ -29,6 +30,7 @@ from dafne_torch.utils import weight_import as W
 from dafne_torch.utils.weights import params_from_flax
 
 from chip_smoke import c2_name, reference_values, write_reference_checkpoints
+from test_full_forward_parity import _bn_checkpoint
 from test_torch_model import narrow_cfgs, random_flax_params
 from test_weight_import_exhaustive import _build_params, make_dafne_checkpoint, make_resnet_state
 
@@ -76,6 +78,57 @@ def test_full_checkpoint_equals_jax_import(tmp_path, depth, num_classes, prefix)
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _jax_import_with(sd, extra):
+    """JAX's import of `sd` into the full-width R-50 of the config
+    overrides `extra` (its batch_stats merged in and split out again), as
+    the port's state dict, and its report."""
+    from dafne_tpu.config import get_cfg as jax_get_cfg
+
+    cfg = jax_get_cfg()
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32", *extra])
+    shapes = jax.eval_shape(jax_build_model(cfg).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3)))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), dict(shapes))
+    new, report = JW.import_state_dict(sd, JW.merge_batch_stats(zeros["params"],
+                                                                zeros.get("batch_stats")))
+    params, stats = JW.split_batch_stats(new)
+    as_np = lambda t: None if t is None else jax.tree_util.tree_map(np.asarray, t)
+    return params_from_flax(as_np(params), as_np(stats)), report
+
+
+@pytest.mark.parametrize("case", ["bn_towers", "top_module", "syncbn_towers_top_module"])
+def test_bn_tower_and_top_module_checkpoint_equals_jax_import(tmp_path, case):
+    """A reference checkpoint with per-level BN towers
+    (``tower.{3i+1}.{level}.{weight,bias,running_mean,running_var,
+    num_batches_tracked}``) and/or a ``top_module`` conv fills every
+    tensor of the port's model, equal to JAX's import; the running
+    statistics land in the per-level BatchNorms' buffers."""
+    rng = np.random.RandomState(21)
+    bn = "bn" in case
+    sd = (_bn_checkpoint if bn else make_dafne_checkpoint)(50, 15, rng)
+    sd = {k: v for k, v in sd.items() if not k.startswith("pixel_")}
+    extra = ["MODEL.DAFNE.NORM", "SyncBN" if case.startswith("syncbn") else "BN"] if bn else []
+    if "top_module" in case:
+        sd["top_module.weight"] = rng.randn(16, 256, 3, 3).astype(np.float32)
+        sd["top_module.bias"] = rng.randn(16).astype(np.float32)
+        extra += ["MODEL.TOP_MODULE.NAME", "conv"]
+    model = _port_model(50, 15, extra)
+    report = W.load_reference_weights(_save_pth(tmp_path, sd), model)
+    assert report.unmatched == [] and report.unfilled == []
+    assert len(report.used) == len(sd)
+    want, jax_report = _jax_import_with(sd, extra)
+    assert jax_report.unmatched == [] and jax_report.unfilled == []
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if bn:
+        key = "proposal_generator.dafne_head.corners_tower.7.3.running_var"
+        assert np.array_equal(got["head.corners_tower.norm2_level3.running_var"].numpy(), sd[key])
+    if "top_module" in case:
+        assert np.array_equal(got["top_module.weight"].numpy(), sd["top_module.weight"])
 
 
 def _c2_pickle(tmp_path, depth, rng):

@@ -136,11 +136,35 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      every copy on the host (TPU.TTA_DEVICE_AUG False): s/image, host warp
      and merge ms.  Every image the phase warps on the host is held bit for
      bit against the plain NumPy version.
+ 17. the model's options: the paper's ablation recipe through the CLI,
+     each head or solver option alone, and the R-101 recipe with TTA.
+ 18. several processes (dafne_torch/parallel/): the CLI as processes in
+     one group at the DOTA-1.0 1024 recipe's width on N_DIST_SCENES
+     synthetic 1024^2 scenes, from seeded weights with the class bias -2:
+     (a) one NCCL rank, DIST_STEPS steps at batch 8 and do_test at batch
+     4, its per-step losses against a plain do_train in this process (bit
+     for bit, else within DIST_LOSS_RTOL, the difference printed); (b) two
+     gloo ranks on the one card, batch 4 each: losses and final parameters
+     against (a)'s within DIST_LOSS_RTOL and DIST_PARAM_ATOL, metrics.json
+     and the evaluator's files written once, its detections against (a)'s
+     printed; then two gloo ranks --eval-only on (a)'s checkpoint at
+     global batch 8, held to (a)'s do_test (>= 99% of the detections
+     matched within 1e-4 and 1e-2, mAP within 0.1); (c) (a)'s checkpoint resumed by
+     two ranks to DIST_RESUME_TO, each metric row written once; (d) K3
+     once per step and K1 and greedy once per eval batch on every rank,
+     rank 0's train and eval inputs held to the plain versions; (e) two
+     NCCL ranks on the one card, what NCCL says (not a pass condition);
+     each rank's step ms and peak memory.  Launches under
+     launches_by_path["distributed"].
+
+A failing phase prints "chip_smoke: phase <n> <name> failed: <message>"
+on stdout before the nonzero exit.
 
 The line before the last holds one JSON object with every kernel's numbers
 (K1's and greedy's launches from phases 4, 11's CLI run, 13's TTA run,
-15's two CLI runs and 16's eval, serve and TTA runs, K3's from phases 7,
-14, 15's and 16's CLI runs, K2's from phase 11's replay;
+15's two CLI runs, 16's eval, serve and TTA runs, 17 and 18, K3's from
+phases 7, 14, 15's and 16's CLI runs, 17 and 18, K2's from phase 11's
+replay;
 "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
@@ -164,6 +188,7 @@ import struct
 import subprocess
 import sys
 import time
+import traceback
 import zipfile
 import zlib
 from collections import Counter
@@ -250,6 +275,17 @@ R101_STEPS = 8  # bucketed train steps through the CLI
 R101_SEED = 3  # SEED: its per-batch scale draws hit all 4 canvases of the ladder in 8 steps
 R101_TTA_SIZES = "(600, 1024)"  # the recipe's 9-scale TTA ladder, cut for time
 N_R101_EVAL = 4  # val tiles of the R-101 evaluation and TTA (DEBUG.OVERFIT_NUM_IMAGES)
+# phase 18: several processes through the CLI, on phase 11's synthetic 1024^2 set
+N_DIST_SCENES = 16  # train and val scenes (DEBUG.OVERFIT_NUM_IMAGES): 2 eval batches of 8
+DIST_STEPS, DIST_RESUME_TO = 10, 12  # train steps; the elastic resume's last step
+DIST_TIMEOUT_S = 300  # each CLI process's limit: a rank waiting on a missing peer fails
+NCCL_TRY_TIMEOUT_S = 60  # (e): NCCL with two ranks on one card
+# two bf16 ranks at batch 4 against one at batch 8: cuDNN may pick other
+# algorithms per batch, so each forward rounds differently; the tolerances
+# of the losses (relative, per step) and of the final parameters (absolute),
+# and the looser match of a detection (score, corner pixels) printed beside
+# match_rate's
+DIST_LOSS_RTOL, DIST_PARAM_ATOL, DIST_MATCH_TOL = 1e-2, 1e-3, (5e-3, 2.0)
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -275,6 +311,35 @@ DOTA_1024 = [
 
 def log(*args):
     print(*args, flush=True)
+
+
+#: the phase running now, named in the failure line
+PHASE = {"n": 0, "name": "set-up"}
+
+
+def phase(n, name):
+    PHASE.update(n=n, name=name)
+
+
+def run() -> int:
+    """``main``, with any failure named by its phase on stdout, then a
+    nonzero exit: a ``SystemExit`` from a check, any exception, or a
+    nonzero return.  Nothing is caught into exit code 0."""
+    try:
+        rc = main()
+    except SystemExit as e:
+        if e.code in (0, None):
+            raise
+        msg = e.code if isinstance(e.code, str) else f"exit code {e.code}"
+        log(f"chip_smoke: phase {PHASE['n']} {PHASE['name']} failed: {msg}")
+        return 1
+    except Exception as e:
+        traceback.print_exc()
+        log(f"chip_smoke: phase {PHASE['n']} {PHASE['name']} failed: {type(e).__name__}: {e}")
+        return 1
+    if rc:
+        log(f"chip_smoke: phase {PHASE['n']} {PHASE['name']} failed: exit code {rc}")
+    return rc
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -595,17 +660,18 @@ def check_k2(corners, classes, what, card):
     return ms, dev, plain_ms, bound, by
 
 
-def match_rate(got, want):
+def match_rate(got, want, score_tol=1e-4, corner_tol=1e-2):
     """(matched, total): how many of `want`'s detections (do_test's
     per-image "preds") have one in `got` of the same image and class, score
-    within 1e-4 and corners within 1e-2."""
+    within `score_tol` and corners within `corner_tol`."""
     matched = total = 0
     for image_id, w in want.items():
-        g = got[image_id]
+        g = got.get(image_id, {"classes": np.zeros(0), "scores": np.zeros(0),
+                               "corners": np.zeros((0, 8))})
         total += len(w["scores"])
         for c, sc, box in zip(w["classes"], w["scores"], w["corners"]):
-            matched += bool(((g["classes"] == c) & (np.abs(g["scores"] - sc) <= 1e-4)
-                             & (np.abs(g["corners"] - box).max(1) <= 1e-2)).any())
+            matched += bool(((g["classes"] == c) & (np.abs(g["scores"] - sc) <= score_tol)
+                             & (np.abs(g["corners"] - box).max(1) <= corner_tol)).any())
     return matched, total
 
 
@@ -648,6 +714,324 @@ def narrow_step_card_vs_cpu(ncfg, examples, seed):
     stat_err = max((float((p_gpu[k] - p_cpu[k]).abs().max() / p_cpu[k].abs().max().clamp(min=1e-12))
                     for k in running), default=0.0)
     return same_labels, l_cpu.numel(), rel, p_err, stat_err, m_cpu
+
+
+# ---- 18. helpers: several processes through the CLI -------------------------
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(args, out_dir, world, flags=(), collectives="gloo", timeout=DIST_TIMEOUT_S):
+    """`world` processes of ``python -m dafne_torch.tools.train`` in one
+    process group (the environment contract of dafne_torch/parallel/
+    distributed.py), every one on card 0 (LOCAL_RANK 0), with collectives
+    `collectives` ("gloo", or "" for the backend's own: NCCL on the card);
+    each waited for within `timeout` s, the rest killed once one times out.
+    Returns [(exit code, output)] in rank order."""
+    port = free_port()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("DAFNE_") and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    base.update(PYTHONPATH=ROOT, DAFNE_COORDINATOR=f"localhost:{port}",
+                DAFNE_NUM_PROCESSES=str(world), LOCAL_RANK="0", DAFNE_DIST_TIMEOUT_S="120")
+    if "DAFNE_DATA_DIR" in os.environ:
+        base["DAFNE_DATA_DIR"] = os.environ["DAFNE_DATA_DIR"]
+    if collectives:
+        base["DAFNE_CPU_COLLECTIVES"] = collectives
+    cmd = [sys.executable, "-m", "dafne_torch.tools.train", *flags, *args, "OUTPUT_DIR", out_dir]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env={**base, "DAFNE_PROCESS_ID": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    return procs
+
+
+def wait_ranks(procs, timeout=DIST_TIMEOUT_S):
+    out = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            out.append((p.returncode, text))
+    except subprocess.TimeoutExpired:
+        out = [(None, "timed out")] * len(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def run_ranks(args, out_dir, world, what, flags=(), collectives="gloo"):
+    """``launch_ranks`` and ``wait_ranks``; raises unless every process
+    exits 0.  Returns each rank's run summary (the CLI's last log line)."""
+    res = wait_ranks(launch_ranks(args, out_dir, world, flags, collectives))
+    for r, (rc, text) in enumerate(res):
+        if rc != 0:
+            raise SystemExit(f"{what}: rank {r} of {world} exited {rc}: ...{text[-3000:]}")
+    return [rank_summary(text) for _, text in res]
+
+
+def rank_summary(text):
+    lines = [ln for ln in text.splitlines() if "run summary " in ln]
+    if not lines:
+        raise SystemExit(f"a CLI process printed no run summary: ...{text[-2000:]}")
+    return json.loads(lines[-1].split("run summary ", 1)[1])
+
+
+def read_task1(out_dir, dataset, classes):
+    """do_test's Task1 files as per-image detections {image id: {"classes",
+    "scores", "corners"}} (scores to 4 decimals, corners to 2)."""
+    per = {}
+    d = os.path.join(out_dir, "inference", dataset, "task1")
+    for ci, name in enumerate(classes):
+        with open(os.path.join(d, f"Task1_{name}.txt")) as f:
+            for ln in f:
+                parts = ln.split()
+                p = per.setdefault(parts[0], {"classes": [], "scores": [], "corners": []})
+                p["classes"].append(ci)
+                p["scores"].append(float(parts[1]))
+                p["corners"].append([float(v) for v in parts[2:10]])
+    return {k: {"classes": np.array(v["classes"]), "scores": np.array(v["scores"]),
+                "corners": np.array(v["corners"]).reshape(-1, 8)} for k, v in per.items()}
+
+
+def read_results(out_dir, dataset):
+    with open(os.path.join(out_dir, "inference", dataset, "results.txt")) as f:
+        return {k: float(v) for k, v in (ln.split(": ") for ln in f.read().splitlines())}
+
+
+def metric_rows(out_dir):
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        return [json.loads(ln)["iteration"] for ln in f]
+
+
+def phase_distributed(card):
+    """Phase 18: the CLI in several processes at the DOTA-1.0 1024 recipe's
+    full width.  Returns the phase's kernel launches (every rank of every
+    run) for the kernels line."""
+    from dafne_torch.config import get_cfg
+    from dafne_torch.data import get_dataset, register_all_datasets
+    from dafne_torch.data.loader import DataLoader
+    from dafne_torch.data.mapper import eval_pad_hw, pad_target_hw
+    from dafne_torch.data.synthetic import GEN_CLASSES
+    from dafne_torch.engine.checkpoint import Checkpointer
+    from dafne_torch.engine.train_loop import do_train, to_device
+    from dafne_torch.engine.trainer import make_location_tables
+    from dafne_torch.models import build_model
+    from dafne_torch.ops.postprocess import DecodeSpec
+    from dafne_torch.ops.targets import AssignmentSpec
+
+    t18 = time.perf_counter()
+    root = os.path.join(ROOT, "output", "chip_smoke_dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    train_set, val_set = "synthetic_gen1024_train", "synthetic_gen1024_val"
+    args = DOTA_1024 + [
+        "DATASETS.TRAIN", f"('{train_set}',)", "DATASETS.TEST", f"('{val_set}',)",
+        "DEBUG.OVERFIT_NUM_IMAGES", str(N_DIST_SCENES), "SOLVER.MAX_ITER", str(DIST_STEPS),
+        "INPUT.MIN_SIZE_TEST", str(CANVAS), "TPU.EVAL_BATCH", str(BATCH),
+        "TPU.NMS_GROUP_CANDIDATES", str(GROUP_K), "TPU.TRAIN_DEVICE_AUG", "False", "SEED", "7",
+    ]
+    cfg = get_cfg()
+    cfg.merge_from_list(args)
+    # seeded weights with the class bias -2 (as phases 4 and 11), so that the
+    # eval's NMS inputs are full; every run of the phase starts from them
+    init = os.path.join(root, "init.pth")
+    m0 = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(18))
+    with torch.no_grad():
+        m0.head.cls_logits.bias.fill_(-2.0)
+    torch.save(m0.state_dict(), init)
+    init_sd = {k: v.float().cpu() for k, v in m0.state_dict().items()}
+    del m0
+    args += ["MODEL.WEIGHTS", init]
+    cfg.merge_from_list(["MODEL.WEIGHTS", init])
+    n_eval_batches = -(-N_DIST_SCENES // BATCH)
+
+    # (a) one rank, NCCL, beside a plain do_train of the same seed in this process
+    dir_a, dir_plain = os.path.join(root, "one_rank"), os.path.join(root, "plain")
+    t0 = time.perf_counter()
+    # (a) evaluates at batch 4, each rank's share of (b)'s global 8: in bf16
+    # the card's convolutions round by batch size (cuDNN's algorithm per
+    # shape), and a random model's dense NMS turns a last-bit score change
+    # into other kept boxes, so only equal per-forward batches can give the
+    # same detections
+    procs = launch_ranks(args + ["TPU.EVAL_BATCH", str(BATCH // 2)], dir_a, 1, collectives="")
+    register_all_datasets(cfg)
+    records = get_dataset(train_set, cfg)
+    pcfg = copy.deepcopy(cfg)
+    pcfg.merge_from_list(["OUTPUT_DIR", dir_plain])
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    # the CLI process's defaults, so that cuDNN picks the same algorithms
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
+    pmodel = build_model(pcfg, device="cuda", generator=torch.Generator().manual_seed(7))
+    pstats = {}
+    do_train(pcfg, pmodel, records, stats=pstats)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = flags
+    del pmodel
+    (rc, text), = wait_ranks(procs)
+    if rc != 0:
+        raise SystemExit(f"(a) one NCCL rank exited {rc}: ...{text[-3000:]}")
+    (sa,) = [rank_summary(text)]
+    a_s = time.perf_counter() - t0
+    (plain_steps,) = pstats["steps"].values()
+    plain_loss = plain_steps["loss"]
+    loss_diff = [abs(x - y) for x, y in zip(sa["loss"], plain_loss)]
+    bit_equal = sa["loss"] == plain_loss
+    log(f"[dist a] one rank, NCCL (DAFNE_NUM_PROCESSES=1): {DIST_STEPS} steps at batch {BATCH}, "
+        f"then do_test on {N_DIST_SCENES} scenes, in {a_s:.1f} s wall beside a plain do_train "
+        f"in this process; per-step total loss {json.dumps(sa['loss'])}; plain do_train "
+        f"{json.dumps(plain_loss)}; bit for bit equal: {bit_equal}, max |diff| "
+        f"{max(loss_diff):.3g} at step {int(np.argmax(loss_diff)) + 1} [{card}]")
+    if sa["world"] != 1 or sa["backend"] != "nccl":
+        raise SystemExit(f"(a) did not run as one NCCL rank: {sa}")
+    if len(sa["loss"]) != DIST_STEPS or not all(np.isfinite(sa["loss"])):
+        raise SystemExit(f"(a) losses missing or not finite: {sa['loss']}")
+    if not bit_equal and max(loss_diff) > DIST_LOSS_RTOL * max(abs(x) for x in plain_loss):
+        raise SystemExit("(a) one NCCL rank's losses differ from a plain do_train's")
+
+    # (b) two ranks on the one card, gloo, batch 4 each
+    dir_b = os.path.join(root, "two_ranks")
+    t0 = time.perf_counter()
+    sb = run_ranks(args, dir_b, 2, "(b) two gloo ranks")
+    b_s = time.perf_counter() - t0
+    if [s["backend"] for s in sb] != ["gloo", "gloo"] or sb[0]["loss"] != sb[1]["loss"]:
+        raise SystemExit(f"(b) not two gloo ranks with the same global losses: {sb}")
+    rel = [abs(x - y) / abs(y) for x, y in zip(sb[0]["loss"], sa["loss"])]
+    pa = torch.load(os.path.join(dir_a, "checkpoints", f"model_{DIST_STEPS:07d}.pth"),
+                    map_location="cpu", weights_only=True)["model"]
+    pb = torch.load(os.path.join(dir_b, "checkpoints", f"model_{DIST_STEPS:07d}.pth"),
+                    map_location="cpu", weights_only=True)["model"]
+    p_err = max(float((pb[k].float() - pa[k].float()).abs().max()) for k in pa)
+    moved = max(float((pa[k].float() - init_sd[k]).abs().max()) for k in pa)
+    det_a = read_task1(dir_a, val_set, GEN_CLASSES)
+    det_b = read_task1(dir_b, val_set, GEN_CLASSES)
+    res_a, res_b = read_results(dir_a, val_set), read_results(dir_b, val_set)
+    trained = match_rate(det_b, det_a, *DIST_MATCH_TOL)
+    # the two ranks' evaluation alone: --eval-only on (a)'s checkpoint
+    dir_e = os.path.join(root, "two_ranks_eval")
+    shutil.copytree(os.path.join(dir_a, "checkpoints"), os.path.join(dir_e, "checkpoints"))
+    t0 = time.perf_counter()
+    se = run_ranks(args, dir_e, 2, "(b) two gloo ranks, --eval-only", flags=("--eval-only",))
+    e_s = time.perf_counter() - t0
+    det_e, res_e = read_task1(dir_e, val_set, GEN_CLASSES), read_results(dir_e, val_set)
+    matched, total = match_rate(det_e, det_a)  # score within 1e-4, corners within 1e-2
+    loose = match_rate(det_e, det_a, *DIST_MATCH_TOL)[0]
+    task1_dir = os.path.join("inference", val_set, "task1")
+    same_files = not subprocess.run(["diff", "-rq", os.path.join(dir_a, task1_dir),
+                                     os.path.join(dir_e, task1_dir)],
+                                    capture_output=True, timeout=60).returncode
+    written = sorted(os.listdir(dir_b))
+    rows_b = metric_rows(dir_b)
+    with open(os.path.join(dir_b, "test_results.csv")) as f:
+        csv_rows = len(f.read().splitlines())
+    per_rank = [{"rank": s["rank"], "step_ms_median": round(statistics.median(s["step_ms"][1:]), 2),
+                 "first_step_ms": round(s["step_ms"][0], 1),
+                 "peak_memory_gib": s["peak_memory_gib"]} for s in [sa] + sb]
+    log(f"[dist b] two ranks on the one card, gloo (batch {BATCH // 2} each): {b_s:.1f} s wall; "
+        f"per-step total loss {json.dumps(sb[0]['loss'])}; relative to (a) max "
+        f"{max(rel):.3g} (tolerance {DIST_LOSS_RTOL}); final params max |diff| {p_err:.3g} "
+        f"(tolerance {DIST_PARAM_ATOL}; the largest move from the initial weights in (a) "
+        f"{moved:.3g}); files {written}, metrics.json rows {rows_b}, test_results.csv "
+        f"{csv_rows} lines; its detections (of its own weights) {trained[0]} of {trained[1]} of "
+        f"(a)'s matched (score within {DIST_MATCH_TOL[0]}, corners within {DIST_MATCH_TOL[1]} px)"
+        f", mAP {res_b['mAP']:.4f} against (a)'s {res_a['mAP']:.4f} (not a pass condition: "
+        f"bf16 steps at batch 4 and 8 round apart) [{card}]")
+    log(f"[dist b] two gloo ranks --eval-only on (a)'s checkpoint at global batch {BATCH} "
+        f"({e_s:.1f} s wall), against (a)'s do_test at batch {BATCH // 2}: detections {matched} "
+        f"of {total} matched (score within 1e-4, corners within 1e-2; {loose} within "
+        f"{DIST_MATCH_TOL[0]} and {DIST_MATCH_TOL[1]} px; Task1 files identical: {same_files}), "
+        f"mAP {res_e['mAP']:.4f} against {res_a['mAP']:.4f} [{card}]")
+    log(f"[dist] per rank (a: rank 0 of 1; b: ranks 0, 1 of 2), step ms on CUDA events, peak "
+        f"memory from torch.cuda.max_memory_allocated: {json.dumps(per_rank)} [{card}]")
+    if max(rel) > DIST_LOSS_RTOL or p_err > DIST_PARAM_ATOL:
+        raise SystemExit("(b) two ranks' losses or parameters differ from one rank's")
+    if total == 0 or matched < 0.99 * total or abs(res_e["mAP"] - res_a["mAP"]) > 0.1:
+        raise SystemExit("(b) two ranks' detections or mAP differ from one rank's")
+    if (rows_b != [1] or csv_rows != 1 + len(res_b) or "log.txt.rank1" not in written
+            or [f for f in written if f.startswith("error")]):
+        raise SystemExit("(b) the ranks did not write their files once, by rank 0")
+
+    # (c) elastic: (a)'s step-10 checkpoint resumes under two ranks to step 12
+    dir_c = os.path.join(root, "elastic")
+    shutil.copytree(dir_a, dir_c, ignore=shutil.ignore_patterns("inference", "test_results.csv"))
+    t0 = time.perf_counter()
+    sc = run_ranks(args + ["SOLVER.MAX_ITER", str(DIST_RESUME_TO), "DATASETS.TEST", "()"], dir_c,
+                   2, "(c) elastic resume", flags=("--resume",))
+    rows_c = metric_rows(dir_c)
+    log(f"[dist c] (a)'s step-{DIST_STEPS} checkpoint resumed by two gloo ranks to step "
+        f"{DIST_RESUME_TO} in {time.perf_counter() - t0:.1f} s wall: losses "
+        f"{json.dumps(sc[0]['loss'])}, metrics.json rows {rows_c}, checkpoints "
+        f"{sorted(os.listdir(os.path.join(dir_c, 'checkpoints')))} [{card}]")
+    if (rows_c != [1, DIST_STEPS + 1] or [len(s["loss"]) for s in sc] != [2, 2]
+            or not all(np.isfinite(sc[0]["loss"]))):
+        raise SystemExit("(c) the elastic resume did not continue once to the next steps")
+
+    # (d) the kernels on every rank, and rank 0's inputs against their plain versions
+    want = {"a": (DIST_STEPS, 2 * n_eval_batches), "b": (DIST_STEPS, n_eval_batches),
+            "e": (0, n_eval_batches), "c": (DIST_RESUME_TO - DIST_STEPS, 0)}
+    counts = {}
+    for run, sums in (("a", [sa]), ("b", sb), ("e", se), ("c", sc)):
+        for s in sums:
+            la = s["launches"]
+            counts[f"{run}{s['rank']}"] = la
+            k3, nms = want[run]
+            if (la["assign_argmin"] != k3 or la["suppression_matrix"] != nms
+                    or la["greedy_keep"] != nms):
+                raise SystemExit(f"({run}) rank {s['rank']} launched {la}, want K3 {k3}, "
+                                 f"K1 and greedy {nms}")
+    log(f"[dist d] launches per run and rank (K3 once per step, K1 and greedy once per eval "
+        f"batch on each rank): {json.dumps(counts)}")
+    spec = AssignmentSpec.from_config(cfg)
+    tables = make_location_tables((CANVAS, CANVAS), spec, device="cuda")
+    loader = DataLoader(cfg, records, BATCH, seed=max(cfg.SEED, 0),
+                        pad_hw=pad_target_hw(cfg, train=True), process_index=0, process_count=2)
+    batches = iter(loader)
+    k3_err = 0.0
+    for i in range(DIST_STEPS):
+        g = to_device(next(batches), "cuda")
+        if i == 0:
+            k3_err = check_assign(spec, tables, g, "(b) rank 0 step 1", card)[5]
+        else:
+            k3_err = max(k3_err, assign_equal(spec, tables, g, f"(b) rank 0 step {i + 1}")[0])
+    batches.close()
+    emodel = build_model(cfg, device="cuda")
+    Checkpointer(dir_b).resume_or_load(emodel, cfg, resume=True)
+    val = get_dataset(val_set, cfg)
+    nms_rows = []
+    with torch.inference_mode():
+        for i, batch in enumerate(DataLoader(cfg, val, BATCH, pad_hw=eval_pad_hw(cfg, val),
+                                             train=False, process_index=0, process_count=2)):
+            nms_rows.append(hold_nms(emodel(batch["image"].cuda()), DecodeSpec.from_config(cfg),
+                                     f"(b) rank 0 eval batch {i}"))
+    del emodel
+    log(f"[dist d] rank 0's K3 inputs ({DIST_STEPS} batches of {BATCH // 2}) equal to the plain "
+        f"version (max |min_area diff| {k3_err}), and its eval batches' NMS inputs (rows, valid, "
+        f"kept) {nms_rows}: K1's bits and greedy's keep-set equal to their plain versions")
+
+    # (e) NCCL with two ranks on one device: what NCCL says (not a pass condition)
+    t0 = time.perf_counter()
+    # --eval-only on no dataset: should NCCL accept the layout, the run ends
+    # after the model is built
+    res = wait_ranks(launch_ranks(args + ["DATASETS.TEST", "()"], os.path.join(root, "nccl_two"),
+                                  2, flags=("--eval-only",), collectives=""),
+                     timeout=NCCL_TRY_TIMEOUT_S)
+    said = []
+    for rc, text in res:
+        lines = [ln.strip() for ln in text.splitlines()
+                 if re.search(r"NCCL|Duplicate|nccl|Error", ln)]
+        said.append({"exit": rc, "says": lines[-3:]})
+    log(f"[dist e] NCCL with two ranks on the one card ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(said)[:2000]}")
+    torch.cuda.empty_cache()
+    log(f"[dist] phase 18 wall time {time.perf_counter() - t18:.1f} s [{card}]")
+    runs = [sa] + sb + se + sc
+    return {k: sum(s["launches"][k] for s in runs)
+            for k in ("suppression_matrix", "greedy_keep", "assign_argmin")}
 
 
 # ---- 15. helpers: PNG files, a DOTA tree and Detectron2 checkpoints ----------
@@ -1113,6 +1497,7 @@ def main() -> int:
     )
 
     # ---- 1. card and build -------------------------------------------------
+    phase(1, "card and build")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1142,6 +1527,7 @@ def main() -> int:
     max_err = {"suppression_matrix": 0.0, "greedy_keep": 0.0, "suppression_matrix_2d": 0.0}
 
     # ---- 2. suppression kernel vs plain ------------------------------------
+    phase(2, "suppression kernel vs plain")
     s_by_mix = {}
     for mix, n_valid in (("dense-15cls", n), ("25pct-valid", n // 4)):
         corners, classes = class_major_mix(rng, b, n, n_valid)
@@ -1161,6 +1547,7 @@ def main() -> int:
     quarter_mix = (corners, classes)  # the 25%-valid mix, for K2 in phase 10
 
     # ---- 3. greedy kernel vs plain walk ------------------------------------
+    phase(3, "greedy kernel vs plain walk")
     chain = torch.from_numpy(np.triu(rng.uniform(size=(n, n)) < 0.002, 1).astype(np.int8))
     links = torch.arange(min(300, n - 1))
     chain[links, links + 1] = 1
@@ -1180,6 +1567,7 @@ def main() -> int:
     del s_by_mix, chain, bits
 
     # ---- 4. main path ------------------------------------------------------
+    phase(4, "main path")
     torch.backends.cudnn.benchmark = True
     cfg = get_cfg()
     cfg.INPUT.MIN_SIZE_TEST = cfg.INPUT.MAX_SIZE_TEST = CANVAS  # requests at unit scale
@@ -1317,6 +1705,7 @@ def main() -> int:
     del ncand, nbits, ns_plain, nout
 
     # ---- 5. small float32 reference: card (kernels) vs CPU (plain) ---------
+    phase(5, "small float32 reference: card (kernels) vs CPU (plain)")
     small = get_cfg()
     small.merge_from_list(NARROW + [
         "TPU.NMS_MAX_CANDIDATES", "1024", "MODEL.DAFNE.POST_NMS_TOPK_TEST", "300",
@@ -1349,6 +1738,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. assignment kernel (K3) vs plain -------------------------------
+    phase(6, "assignment kernel (K3) vs plain")
     train_cfg = get_cfg()
     train_cfg.merge_from_list(DOTA_1024)
     train_cfg.OUTPUT_DIR = os.path.join(ROOT, "output", "chip_smoke_train")
@@ -1373,6 +1763,7 @@ def main() -> int:
     del mixes, km, ka
 
     # ---- 7. training path at full width -----------------------------------
+    phase(7, "training path at full width")
     logging.basicConfig(level=logging.INFO, format="[%(name)s] %(message)s", stream=sys.stdout)
     tmodel = build_model(train_cfg, device="cuda", generator=torch.Generator().manual_seed(2))
     warm = copy.deepcopy(train_cfg)
@@ -1452,6 +1843,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. overfit one fixed batch ----------------------------------------
+    phase(8, "overfit one fixed batch")
     ocfg = copy.deepcopy(train_cfg)
     ocfg.merge_from_list(["SOLVER.WARMUP_ITERS", "0", "SOLVER.BASE_LR", str(OVERFIT_LR)])
     omodel = build_model(ocfg, device="cuda", generator=torch.Generator().manual_seed(3)).train()
@@ -1468,6 +1860,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. one narrow float32 train step: card (kernel) vs CPU (plain) ---
+    phase(9, "one narrow float32 train step: card (kernel) vs CPU (plain)")
     ncfg = get_cfg()
     ncfg.merge_from_list(DOTA_1024 + NARROW + [
         "SOLVER.WARMUP_ITERS", "0", "INPUT.MIN_SIZE_TRAIN", "(256,)",
@@ -1485,6 +1878,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 10. 2-D tiled suppression kernel (K2) vs plain ---------------------
+    phase(10, "2-D tiled suppression kernel (K2) vs plain")
     score_order = class_major_mix(rng, b, n, n, class_major=False)
     for mix, (corners, classes) in (("dense-15cls-score-order", score_order),
                                     ("25pct-valid-class-major", quarter_mix)):
@@ -1492,6 +1886,7 @@ def main() -> int:
     del score_order, quarter_mix
 
     # ---- 11. the eval path at full width -----------------------------------
+    phase(11, "the eval path at full width")
     eval_dir = os.path.join(ROOT, "output", "chip_smoke_eval")
     shutil.rmtree(eval_dir, ignore_errors=True)
     eval_set = "synthetic_gen1024_val"
@@ -1658,6 +2053,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12. narrow float32 do_test: card (kernels) vs CPU (plain) -----------
+    phase(12, "narrow float32 do_test: card (kernels) vs CPU (plain)")
     rcfg = get_cfg()
     rcfg.merge_from_list(NARROW + [
         "DATASETS.TEST", "('synthetic_gen_val',)", "DEBUG.OVERFIT_NUM_IMAGES", "8",
@@ -1707,6 +2103,7 @@ def main() -> int:
                          f"mAP {mixed_map}, not strictly between 0 and 100")
 
     # ---- 13. TTA at full width: the DOTA-1.0 1024 recipe's ladder ------------
+    phase(13, "TTA at full width: the DOTA-1.0 1024 recipe's ladder")
     tta_args = eval_args + ["DEBUG.OVERFIT_NUM_IMAGES", str(N_TTA_SCENES), "TEST.AUG.ENABLED",
                             "True", "TEST.AUG.MIN_SIZES", TTA_MIN_SIZES, "TEST.AUG.MAX_SIZE",
                             str(TTA_MAX_SIZE)]
@@ -1846,6 +2243,7 @@ def main() -> int:
         raise SystemExit("the card's TTA disagrees with the CPU reference")
 
     # ---- 14. train-time augmentation rendered on the card -------------------
+    phase(14, "train-time augmentation rendered on the card")
     da_cfg, host_cfg = copy.deepcopy(train_cfg), copy.deepcopy(train_cfg)
     da_cfg.TPU.TRAIN_DEVICE_AUG, host_cfg.TPU.TRAIN_DEVICE_AUG = True, False
     idx = list(range(b))
@@ -1910,6 +2308,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 15. datasets on disk: the DOTA-1.0 1024 recipe through the CLI ------
+    phase(15, "datasets on disk: the DOTA-1.0 1024 recipe through the CLI")
     files_dir = os.path.join(ROOT, "output", "chip_smoke_files")
     shutil.rmtree(files_dir, ignore_errors=True)
     data_dir = os.path.join(files_dir, "data")
@@ -2143,6 +2542,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 16. the HRSC2016 multi-scale recipe: train, evaluate, serve, TTA ----
+    phase(16, "the HRSC2016 multi-scale recipe: train, evaluate, serve, TTA")
     hrsc_dir = os.path.join(ROOT, "output", "chip_smoke_hrsc")
     shutil.rmtree(hrsc_dir, ignore_errors=True)
     os.environ["DAFNE_DATA_DIR"] = os.path.join(hrsc_dir, "data")
@@ -2428,6 +2828,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 17. the model's options: the ablation recipe, each option, R-101 ----
+    phase(17, "the model's options: the ablation recipe, each option, R-101")
     t17 = time.perf_counter()
     opt_dir = os.path.join(ROOT, "output", "chip_smoke_options")
     shutil.rmtree(opt_dir, ignore_errors=True)
@@ -2745,44 +3146,53 @@ def main() -> int:
     log(f"[options] phase 17 wall time {time.perf_counter() - t17:.1f} s; launches: options "
         f"{opt_launches}, r101 {r101_launches} [{card}]")
 
+    # ---- 18. several processes: the CLI on two ranks, elastic resume -------
+    phase(18, "several processes")
+    dist_launches = phase_distributed(card)
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
          "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"]
          + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"]
          + hrsc_nms_launches + opt_launches["suppression_matrix"]
-         + r101_launches["suppression_matrix"],
+         + r101_launches["suppression_matrix"] + dist_launches["suppression_matrix"],
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
                               "files": files_launches["suppression_matrix"],
                               "hrsc": hrsc_nms_launches,
                               "options": opt_launches["suppression_matrix"],
-                              "r101": r101_launches["suppression_matrix"]},
+                              "r101": r101_launches["suppression_matrix"],
+                              "distributed": dist_launches["suppression_matrix"]},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:312",
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
          + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches
-         + opt_launches["greedy_keep"] + r101_launches["greedy_keep"],
+         + opt_launches["greedy_keep"] + r101_launches["greedy_keep"]
+         + dist_launches["greedy_keep"],
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
                               "files": files_launches["greedy_keep"],
                               "hrsc": hrsc_nms_launches,
                               "options": opt_launches["greedy_keep"],
-                              "r101": r101_launches["greedy_keep"]},
+                              "r101": r101_launches["greedy_keep"],
+                              "distributed": dist_launches["greedy_keep"]},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35",
          "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3
-         + opt_launches["assign_argmin"] + r101_launches["assign_argmin"],
+         + opt_launches["assign_argmin"] + r101_launches["assign_argmin"]
+         + dist_launches["assign_argmin"],
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
                               "files": files_launches["assign_argmin"], "hrsc": hrsc_k3,
                               "options": opt_launches["assign_argmin"],
-                              "r101": r101_launches["assign_argmin"]},
+                              "r101": r101_launches["assign_argmin"],
+                              "distributed": dist_launches["assign_argmin"]},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
@@ -2799,4 +3209,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

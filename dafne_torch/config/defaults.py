@@ -179,6 +179,8 @@ def build_defaults() -> CfgNode:
 
     # key names kept from the JAX package's TPU namespace so recipes merge
     t = _C.TPU = CfgNode()
+    t.MESH_SHAPE = [-1]  # data-parallel processes; -1 = the world size
+    t.MESH_AXIS_NAMES = ["data"]  # only "data" is ported (parallel/mesh.py)
     t.COMPUTE_DTYPE = "bfloat16"  # model compute dtype; params stay float32
     t.MAX_INSTANCES = 256  # static per-image gt padding
     t.NMS_GROUP_CANDIDATES = 0  # >0: per-class-group NMS budget; 0: global cap

@@ -16,6 +16,13 @@ fall back to the host path.  With ``buckets`` (a ``TrainScaleBuckets``,
 TPU.BUCKETED_TRAIN, :193-210) one shortest-edge scale is drawn per batch
 from its own stream, ``RandomState(seed * 7919 + 13)``, after the batch's
 indices and seeds, and the batch renders onto that scale's canvas.
+
+With several processes (``process_index`` of ``process_count``, :87-108,
+212-247) ``batch_size`` is the global batch: every process draws the same
+sampler stream, per-example seeds and bucket scales, and maps only its rows
+``proc_lo:proc_hi``, so the processes' rows together are the one-process
+batch.  An eval batch's ``image_id`` and ``batch_valid`` stay global, for
+the evaluator of process 0.
 """
 
 from __future__ import annotations
@@ -88,11 +95,17 @@ class DataLoader:
     record order (``len`` batches).  `device_aug` (train only): device-aug
     batches; ``self.device_aug`` says whether the loader makes them.
     `buckets` (train only): a ``TrainScaleBuckets``, whose per-batch draw
-    sets each batch's scale and canvas."""
+    sets each batch's scale and canvas.  `process_index` of
+    `process_count`: the rows of the global `batch_size` this process maps."""
 
     def __init__(self, cfg, records: List[dict], batch_size: int, seed: int = 0,
                  pad_hw: Optional[Tuple[int, int]] = None, pin_memory: bool = False,
-                 train: bool = True, device_aug: bool = False, buckets=None):
+                 train: bool = True, device_aug: bool = False, buckets=None,
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"batch {batch_size} does not split over {process_count} processes")
+        self.proc_lo = batch_size // process_count * process_index
+        self.proc_hi = self.proc_lo + batch_size // process_count
         if train and cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
             records = [r for r in records if r.get("annotations")] or records
         self.records = records
@@ -157,7 +170,8 @@ class DataLoader:
                 idx = list(range(start, min(start + self.batch_size, n)))
                 real = len(idx)
                 idx += [idx[-1]] * (self.batch_size - real)  # pad the last batch
-                batch = self.make_batch(idx, [0] * len(idx),
+                local = idx[self.proc_lo:self.proc_hi]
+                batch = self.make_batch(local, [0] * len(local),
                                         pool if self.num_workers > 0 else None)
                 batch["image_id"] = [self.records[i].get("image_id", str(i)) for i in idx]
                 batch["batch_valid"] = np.arange(self.batch_size) < real
@@ -178,7 +192,9 @@ class DataLoader:
                         min_size = pad_hw = None
                         if self.buckets is not None:
                             min_size, pad_hw = self.buckets.draw(scale_rng)
-                        q.put(self.make_batch(idx, seeds, pool if self.num_workers > 0 else None,
+                        lo, hi = self.proc_lo, self.proc_hi  # this process's rows
+                        q.put(self.make_batch(idx[lo:hi], seeds[lo:hi],
+                                              pool if self.num_workers > 0 else None,
                                               min_size, pad_hw))
             except Exception as e:  # surface it in the consumer instead of hanging
                 q.put(e)

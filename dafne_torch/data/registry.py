@@ -15,21 +15,30 @@ when the datasets are registered.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 
 class _Catalog:
     def __init__(self):
-        self._loaders: Dict[str, Callable[[], List[dict]]] = {}
+        self._loaders: Dict[str, Callable[..., List[dict]]] = {}
+        self._sized = set()
 
-    def register(self, name: str, fn: Callable[[], List[dict]]):
+    def register(self, name: str, fn: Callable[..., List[dict]], sized: bool = False):
+        """`sized`: fn(limit) makes only the first `limit` records (a
+        generator set), the same as the first `limit` of fn()."""
         self._loaders[name] = fn
+        self._sized.discard(name)
+        if sized:
+            self._sized.add(name)
 
-    def get(self, name: str) -> List[dict]:
+    def get(self, name: str, limit: Optional[int] = None) -> List[dict]:
+        """The records of `name`; at least the first `limit` of them."""
         if name not in self._loaders:
             raise KeyError(
                 f"Dataset '{name}' is not registered. Known: {sorted(self._loaders)[:20]}..."
             )
+        if limit and name in self._sized:
+            return self._loaders[name](limit)
         return self._loaders[name]()
 
     def __contains__(self, name):
@@ -56,10 +65,11 @@ def apply_overfit(records: List[dict], cfg) -> List[dict]:
 
 
 def get_dataset(name: str, cfg=None) -> List[dict]:
-    records = DatasetCatalog.get(name)
-    if cfg is not None:
-        records = apply_overfit(records, cfg)
-    return records
+    """The records of `name`, cut to DEBUG.OVERFIT_NUM_IMAGES (a generator
+    set makes only those)."""
+    if cfg is None:
+        return DatasetCatalog.get(name)
+    return apply_overfit(DatasetCatalog.get(name, cfg.DEBUG.OVERFIT_NUM_IMAGES), cfg)
 
 
 def register_all_datasets(cfg) -> None:

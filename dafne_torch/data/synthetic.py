@@ -139,7 +139,8 @@ def register_synthetic_gen(cfg) -> None:
     DEBUG.OVERFIT_NUM_IMAGES truncates them downstream like any dataset."""
     for split, n in [("train", 2048), ("val", 64), ("test", 64)]:
         name = f"synthetic_gen_{split}"
-        DatasetCatalog.register(name, lambda s=split, k=n: load_synthetic_gen(s, k))
+        DatasetCatalog.register(name, lambda limit=None, s=split, k=n:
+                                load_synthetic_gen(s, min(k, limit or k)), sized=True)
         MetadataCatalog[name] = {
             "evaluator_type": "synthetic",
             "thing_classes": GEN_CLASSES,
@@ -162,10 +163,12 @@ def _load_synthetic_gen1024(split: str, n: int) -> List[dict]:
 
 def register_synthetic_gen1024(cfg) -> None:
     """synthetic_gen1024_{train,val,test}: 512, 64 and 64 scenes at 1024^2
-    with up to 96 objects, the deployment-scale canvas."""
+    with up to 96 objects, the deployment-scale canvas; with
+    DEBUG.OVERFIT_NUM_IMAGES n only the first n are made."""
     for split, n in [("train", 512), ("val", 64), ("test", 64)]:
         name = f"synthetic_gen1024_{split}"
-        DatasetCatalog.register(name, lambda s=split, k=n: _load_synthetic_gen1024(s, k))
+        DatasetCatalog.register(name, lambda limit=None, s=split, k=n:
+                                _load_synthetic_gen1024(s, min(k, limit or k)), sized=True)
         MetadataCatalog[name] = {
             "evaluator_type": "synthetic",
             "thing_classes": GEN_CLASSES,

@@ -12,7 +12,10 @@ state dict), or the reference's Detectron2 ``.pkl`` / ``.pth`` through
 ``utils/weight_import.py``, told apart by their names, not by the file's
 extension.  Otherwise the initial weights stay.  Saves are synchronous
 (the JAX package saves asynchronously); orbax checkpoints of the JAX
-package are not read.
+package are not read.  With several processes process 0 writes and all
+meet at a barrier after it, and each resumes from the same file onto its
+own device: every process holds the same state, so a checkpoint of any
+world size resumes under any other.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from dafne_torch.parallel.distributed import barrier, is_main_process
 from dafne_torch.utils import weight_import
 
 LAST = "last_checkpoint"
@@ -40,13 +44,20 @@ class Checkpointer:
 
     def save(self, step: int, model, optimizer=None, scheduler=None) -> str:
         """Write the checkpoint of `step` (atomically: a reader never sees
-        half a file) and point ``last_checkpoint`` at it.  Returns its path."""
+        half a file) and point ``last_checkpoint`` at it, on process 0, then
+        meet the other processes.  Returns its path."""
+        path = self._path(step)
+        if is_main_process():
+            self._write(path, step, model, optimizer, scheduler)
+        barrier()
+        return path
+
+    def _write(self, path, step, model, optimizer, scheduler) -> None:
         payload = {"model": model.state_dict(), "step": int(step)}
         if optimizer is not None:
             payload["optimizer"] = optimizer.state_dict()
         if scheduler is not None:
             payload["scheduler"] = scheduler.state_dict()
-        path = self._path(step)
         torch.save(payload, f"{path}.tmp")
         os.replace(f"{path}.tmp", path)
         with open(os.path.join(self.dir, f"{LAST}.tmp"), "w") as f:
@@ -55,7 +66,6 @@ class Checkpointer:
         saved = sorted(p for p in os.listdir(self.dir) if p.startswith("model_") and p.endswith(".pth"))
         for old in saved[: max(len(saved) - self.max_to_keep, 0)]:
             os.remove(os.path.join(self.dir, old))
-        return path
 
     def latest_step(self) -> Optional[int]:
         """The step of the checkpoint ``last_checkpoint`` names, or None."""

@@ -2,7 +2,9 @@
 
 Counterpart of ``dafne_tpu/engine/events.py`` (``TerminalWriter``,
 ``JSONWriter``, ``build_writers``); the TensorBoard writer is not ported.
-``mark`` and ``elapsed_ms`` time a span on a device's stream.
+``mark`` and ``elapsed_ms`` time a span on a device's stream.  With
+several processes ``do_train`` builds the writers on process 0 only (JAX
+``train_loop.py:378-381``); the metrics it writes are the global ones.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """The training and evaluation loops.
 
-Counterpart of ``dafne_tpu/engine/train_loop.py`` for one process on one
-device:
+Counterpart of ``dafne_tpu/engine/train_loop.py``, on one device per
+process:
 
-- ``do_train`` (:288): ``auto_scale_config`` to a world size of 1, resume or
-  bootstrap through ``engine/checkpoint.py``, the train records through
-  the port's loader onto the static train canvas, or with a multi-scale
-  ladder onto each batch's bucket canvas (``TrainScaleBuckets``,
+- ``do_train`` (:288): ``auto_scale_config`` to the world size (:296),
+  resume or bootstrap through ``engine/checkpoint.py``, the train records
+  through the port's loader onto the static train canvas, or with a
+  multi-scale ladder onto each batch's bucket canvas (``TrainScaleBuckets``,
   TPU.BUCKETED_TRAIN, :300-345: one train step per canvas, built on first
   use, all sharing the model, optimizer and scheduler), rendered on the
   device when ``resolve_train_device_aug`` says so (:331-372), SOLVER.MAX_ITER steps,
@@ -22,8 +22,16 @@ device:
   ``submission.zip`` (``evaluation/result_merge.py``).
 - ``save_test_results``, ``setup_logging`` and ``default_setup``.
 
-Several processes, the profiler window and sample renderings are not
-ported.
+With several processes (``parallel/distributed.py``) SOLVER.IMS_PER_BATCH
+and TPU.EVAL_BATCH are global batches: each process maps, trains on and
+evaluates its rows of them.  The parameters, and TPU.TRAIN_DEVICE_AUG's
+decision (its "auto" reads the host's cores), are broadcast from process 0
+at the start; process 0 alone writes the metrics, the config, the
+checkpoints and the evaluation files, and the decoded detections of every
+process's rows are gathered to it through the host.  The others return
+``{}`` per dataset from ``do_test``, as JAX's do.
+
+The profiler window and sample renderings are not ported.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from dafne_torch.engine.trainer import make_train_step, resolve_train_device_aug
 from dafne_torch.evaluation import build_evaluator
 from dafne_torch.evaluation.result_merge import make_submission_zip, merge_by_poly
 from dafne_torch.ops.device_warp import WARP_KEYS
+from dafne_torch.parallel import distributed as dist
+from dafne_torch.parallel.mesh import mesh_from_config
 
 logger = logging.getLogger("dafne_torch")
 
@@ -72,22 +82,25 @@ def to_device(batch, device) -> Dict:
     return {k: batch[k].to(device, non_blocking=True) for k in keys + GT_KEYS}
 
 
-def setup_logging(output_dir=None):
+def setup_logging(output_dir=None, file_name="log.txt"):
     handlers = [logging.StreamHandler()]
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
-        handlers.append(logging.FileHandler(os.path.join(output_dir, "log.txt")))
+        handlers.append(logging.FileHandler(os.path.join(output_dir, file_name)))
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s",
                         handlers=handlers, force=True)
 
 
 def default_setup(cfg):
-    """Logging to OUTPUT_DIR/log.txt, the datasets registered, and the
-    config written to OUTPUT_DIR/config.yaml."""
-    setup_logging(cfg.OUTPUT_DIR)
+    """Logging to OUTPUT_DIR/log.txt (log.txt.rank<r> for process r > 0),
+    the datasets registered, and the config written to
+    OUTPUT_DIR/config.yaml by process 0."""
+    rank = dist.process_index()
+    setup_logging(cfg.OUTPUT_DIR, "log.txt" if rank == 0 else f"log.txt.rank{rank}")
     register_all_datasets(cfg)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    cfg.dump_to_file(os.path.join(cfg.OUTPUT_DIR, "config.yaml"))
+    if rank == 0:
+        cfg.dump_to_file(os.path.join(cfg.OUTPUT_DIR, "config.yaml"))
 
 
 def _fetch_async(det: Dict[str, torch.Tensor]):
@@ -102,10 +115,14 @@ def _fetch_async(det: Dict[str, torch.Tensor]):
 
 
 def _consume(evaluator, batch, fetched) -> int:
+    """Feed a fetched batch's detections to `evaluator` (None off process
+    0: its rows go to process 0's) and count the batch's valid images."""
     host, event = fetched
     if event is not None:
         event.synchronize()
-    evaluator.process_batch(batch, {k: v.numpy() for k, v in host.items()})
+    det = dist.gather_to_main({k: v.numpy() for k, v in host.items()})
+    if evaluator is not None:
+        evaluator.process_batch(batch, det)
     return int(batch["batch_valid"].sum())
 
 
@@ -113,7 +130,8 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
             stats: Optional[dict] = None) -> Dict[str, Dict[str, float]]:
     """Evaluate `model` (on its device) on every cfg.DATASETS.TEST dataset.
 
-    Returns {dataset: {"AP50/<class>": ..., "mAP": ...}}.  With
+    Returns {dataset: {"AP50/<class>": ..., "mAP": ...}} on process 0 and
+    {dataset: {}} on the others.  With
     `output_dir`, each dataset's artifacts go to
     output_dir/inference/<dataset> and a row per metric is appended to
     output_dir/test_results.csv.  A `stats` dict receives, per dataset, the
@@ -121,11 +139,18 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
     and of ``evaluate()`` (on an unlabeled test split: of writing the
     Task1 files, of the merge and of the zip instead), and the per-image
     detections ("preds": image id to corners, scores, classes).  The model
-    is left in the mode it came in."""
+    is left in the mode it came in.  With several processes TPU.EVAL_BATCH
+    is rounded down to a multiple of the world size (at least one row
+    each); process 0 evaluates, writes and fills `stats` with "preds"."""
     device = next(model.parameters()).device
     was_training = model.training
     model.eval()
     results = {}
+    pc, main = dist.process_count(), dist.is_main_process()
+    batch_size = max(1, int(cfg.TPU.EVAL_BATCH))
+    if pc > 1:  # the global eval batch splits evenly over the data axis (the processes)
+        q = mesh_from_config(cfg)["data"]
+        batch_size = max(q, batch_size // q * q)
     for dataset_name in cfg.DATASETS.TEST:
         records = get_dataset(dataset_name, cfg)
         meta = MetadataCatalog.get(dataset_name, {})
@@ -133,10 +158,11 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
         # the tight per-dataset canvas (record dims) instead of MAX_SIZE_TEST^2
         pad_hw = eval_pad_hw(cfg, records)
         eval_step = make_eval_step(model, cfg, pad_hw)
-        loader = DataLoader(cfg, records, max(1, int(cfg.TPU.EVAL_BATCH)), pad_hw=pad_hw,
-                            pin_memory=device.type == "cuda", train=False)
+        loader = DataLoader(cfg, records, batch_size, pad_hw=pad_hw,
+                            pin_memory=device.type == "cuda", train=False,
+                            process_index=dist.process_index(), process_count=pc)
         out_dir = os.path.join(output_dir, "inference", dataset_name) if output_dir else None
-        evaluator = build_evaluator(cfg, dataset_name, records, out_dir)
+        evaluator = build_evaluator(cfg, dataset_name, records, out_dir) if main else None
         t0 = time.perf_counter()
         n_images = 0
         # one batch in flight: batch i+1 is dispatched (its host mapping
@@ -152,6 +178,11 @@ def do_test(cfg, model, output_dir=None, step: int = 0,
         if pending is not None:
             n_images += _consume(evaluator, *pending)
         loop_s = time.perf_counter() - t0
+        if not main:
+            results[dataset_name] = {}
+            if stats is not None:
+                stats[dataset_name] = {"images": n_images, "loop_s": loop_s}
+            continue
         t0 = time.perf_counter()
         if unlabeled:
             res, split = {}, _write_submission(evaluator, meta, out_dir)
@@ -220,8 +251,12 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
     buckets), and per canvas the train steps built, the milliseconds of
     each step run on it, in order, and each step's total loss ("steps":
     {(h, w): {"builds", "ms", "loss"}}; CUDA events around the step on the
-    card, the host clock off it)."""
-    cfg = auto_scale_config(cfg, 1)
+    card, the host clock off it).  With several processes
+    SOLVER.IMS_PER_BATCH is the global batch (the loader raises unless it
+    splits evenly over them); the returned metrics and the losses in `stats` are global."""
+    world, main = dist.process_count(), dist.is_main_process()
+    mesh_from_config(cfg)  # a mesh that does not fit the processes raises
+    cfg = auto_scale_config(cfg, world)
     device = next(model.parameters()).device
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     pad_hw = pad_target_hw(cfg, train=True)
@@ -231,14 +266,17 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
     if buckets is not None:
         logger.info(f"bucketed ms train: canvases {buckets.canvases} (scales {buckets.sizes}, "
                     f"sampling {buckets.sampling})")
-    logger.info(f"device={device} batch={batch_size} pad_hw={pad_hw} records={len(records)}")
+    logger.info(f"device={device} batch={batch_size} (process {dist.process_index()} of {world}) "
+                f"pad_hw={pad_hw} records={len(records)}")
 
     optimizer, scheduler = build_optimizer(cfg, model)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     start_iter = checkpointer.resume_or_load(model, cfg, resume, optimizer, scheduler)
+    dist.broadcast_state_(model)
     loader = DataLoader(cfg, records, batch_size, seed=max(cfg.SEED, 0), pad_hw=pad_hw,
-                        pin_memory=device.type == "cuda", device_aug=resolve_train_device_aug(cfg),
-                        buckets=buckets)
+                        pin_memory=device.type == "cuda",
+                        device_aug=dist.broadcast_from_main(resolve_train_device_aug(cfg)),
+                        buckets=buckets, process_index=dist.process_index(), process_count=world)
     logger.info(f"train augmentation rendered on the {'device' if loader.device_aug else 'host'}")
     steps: Dict[Tuple[int, int], object] = {}
 
@@ -253,7 +291,7 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
         return steps[hw]
 
     per_canvas: Dict[Tuple[int, int], dict] = {}
-    writers = build_writers(cfg.OUTPUT_DIR, max_iter)
+    writers = build_writers(cfg.OUTPUT_DIR, max_iter) if main else []
     model.train()
     batches = iter(loader)
     host: Dict[str, float] = {}

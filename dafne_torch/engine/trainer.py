@@ -16,6 +16,19 @@ The step's one forward runs with ``train=True``, so a model with BN towers
 moves its running statistics once per step, as JAX's
 ``mutable=["batch_stats"]`` apply does.
 ``TPU.HOST_ASSIGN`` is not ported and raises when set True.
+
+With several processes (``parallel/distributed.py``) each runs this step
+on its rows of the global batch.  Its loss is its local numerator over the
+global normalizers (``ops/losses.py``), so the sum of the processes'
+gradients is the gradient of JAX's global loss: one all-reduce (a sum)
+over the flattened gradients, after ``backward`` and before clipping,
+gives every process the same gradients, and with them the same clip and
+update.  The metrics are the global values: the loss terms summed over
+the processes (``num_pos`` is global already).  An explicit all-reduce,
+not ``DistributedDataParallel``: DDP averages (the loss would have to be
+scaled by the world size), broadcasts the buffers from process 0 at every
+forward and needs the forward wrapped, where the train step calls the
+model through ``compute_losses``; here one process keeps its step as it is.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ from dafne_torch.ops.targets import (
     flatten_levels,
     level_metadata,
 )
+from dafne_torch.parallel.distributed import all_reduce_grads_, all_reduce_sum, process_count
 
 
 def level_sizes_for(image_hw: Tuple[int, int], strides) -> list:
@@ -141,6 +155,7 @@ def make_train_step(model, cfg, image_hw: Tuple[int, int], optimizer, scheduler,
     loss_spec = LossSpec.from_config(cfg)
     tables = make_location_tables(image_hw, assign_spec, device=device)
     color_aug = bool(cfg.INPUT.USE_COLOR_AUGMENTATIONS)
+    distributed = process_count() > 1
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
         lr = scheduler.get_last_lr()[0]  # the "default" group's, as JAX's schedule(step)
@@ -150,10 +165,16 @@ def make_train_step(model, cfg, image_hw: Tuple[int, int], optimizer, scheduler,
         losses, _ = compute_losses(model, batch, assign_spec, loss_spec, tables, train=True)
         loss = losses["loss/total"]
         loss.backward()
+        if distributed:
+            all_reduce_grads_(model.parameters())
         clip_gradients_(optimizer, cfg)
         optimizer.step()
         scheduler.step()
         metrics = {k: v.detach() for k, v in losses.items()}
+        if distributed:  # the global loss terms; num_pos is global already
+            keys = [k for k in metrics if k.startswith("loss/")]
+            sums = all_reduce_sum(torch.stack([metrics[k] for k in keys]))
+            metrics.update(zip(keys, sums.unbind()))
         metrics["loss_is_finite"] = torch.isfinite(metrics["loss/total"])
         metrics["lr"] = lr
         return metrics

@@ -26,6 +26,13 @@ Counterpart of ``dafne_tpu/engine/tta.py`` (:46-296):
   DATASETS.TEST dataset into OUTPUT_DIR/inference_tta/<dataset>, decoding
   a record's file (``data/image_io.py::read_image``, :282-283) where it
   carries no image.
+
+With several processes JAX's ``do_test_with_tta`` runs every record on
+every process and every process evaluates.  Here process p runs records
+p, p + P, ...; their detections are gathered to process 0 through the
+host (``parallel.distributed.gather_objects_to_main``), which feeds them
+to the evaluator in record order, evaluates and writes the files once; the
+others return ``{}`` per dataset.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from dafne_torch.ops.device_warp import (
     stack_warps,
     warp_tensors,
 )
+from dafne_torch.parallel import distributed as dist
 from dafne_torch.utils.polyiou import poly_nms
 
 logger = logging.getLogger("dafne_torch")
@@ -267,20 +275,30 @@ def do_test_with_tta(cfg, model, output_dir=None, stats: Optional[dict] = None):
     model.eval()
     results = {}
     steps = BucketedEvalSteps(cfg, model)
+    rank, pc = dist.process_index(), dist.process_count()
     for dataset_name in cfg.DATASETS.TEST:
         records = get_dataset(dataset_name, cfg)
         out_dir = os.path.join(output_dir, "inference_tta", dataset_name) if output_dir else None
-        evaluator = build_evaluator(cfg, dataset_name, records, out_dir)
-        per_image = []
+        per_image, dets = [], []
         t0 = time.perf_counter()
-        for r in records:
+        for i in range(rank, len(records), pc):  # this process's share
+            r = records[i]
             img = r["image"] if "image" in r else read_image(r["file_name"], cfg.INPUT.FORMAT)
             st = {} if stats is not None else None
-            det = tta_inference_single(cfg, steps, img, st)
-            evaluator.process_image(r["image_id"], det["corners"], det["scores"],
-                                    det["classes"], det["valid"])
+            dets.append((i, tta_inference_single(cfg, steps, img, st)))
             per_image.append(st)
+        gathered = dist.gather_objects_to_main(dets)
         loop_s = time.perf_counter() - t0
+        if gathered is None:  # not process 0
+            results[dataset_name] = {}
+            if stats is not None:
+                stats[dataset_name] = {"images": len(dets), "loop_s": loop_s,
+                                       "per_image": per_image}
+            continue
+        evaluator = build_evaluator(cfg, dataset_name, records, out_dir)
+        for i, det in sorted((d for part in gathered for d in part), key=lambda d: d[0]):
+            evaluator.process_image(records[i]["image_id"], det["corners"], det["scores"],
+                                    det["classes"], det["valid"])
         t0 = time.perf_counter()
         res = evaluator.evaluate()
         evaluate_s = time.perf_counter() - t0

@@ -48,9 +48,9 @@ class Tower(nn.Module):
     `norm` is "GN" (GroupNorm of C // 8 groups, ``norm{i}``), "BN" or
     "SyncBN" (one ``BatchNorm`` per FPN level, ``norm{i}_level{l}``: the
     convs are shared across levels, the norms are not), or "" / "none".
-    SyncBN is BN here: one process normalizes over its whole batch (JAX's
-    SPMD program normalizes over the global batch; several processes are not
-    ported).  ``forward(x, level, train)``: `train` moves the BN running
+    BN and SyncBN both normalize over the global batch, as JAX's one SPMD
+    program does: with several processes ``BatchNorm`` sums its statistics
+    over them.  ``forward(x, level, train)``: `train` moves the BN running
     statistics.  The deformable last conv (USE_DEFORMABLE) is not ported:
     ``DAFNeHead`` raises for it."""
 

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dafne_torch.parallel.distributed import GlobalSum, process_count
+
 
 class Conv2d(nn.Conv2d):
     """Conv2d whose weight and bias are cast to the input's dtype."""
@@ -70,7 +72,11 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2 clipped at 0, and the running variance takes that
     biased variance.  ``F.batch_norm`` would take the unbiased one, in two
     passes, so this is written out; there is no ``num_batches_tracked``.
-    The output is in the input's dtype."""
+    The output is in the input's dtype.  With several processes the
+    training statistics are those of the global batch, as under JAX's one
+    SPMD program: the float32 sums of x and x^2 and the count are summed
+    over the processes, the gradient flowing back through that sum
+    (``parallel.distributed.GlobalSum``)."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -84,8 +90,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
-            mean = xf.mean((0, 2, 3))
-            mean2 = (xf * xf).mean((0, 2, 3))
+            if process_count() > 1:
+                count = torch.full((1,), x.numel() // x.shape[1], dtype=xf.dtype, device=x.device)
+                sums = GlobalSum.apply(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                                  count]))
+                c = x.shape[1]
+                mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            else:
+                mean = xf.mean((0, 2, 3))
+                mean2 = (xf * xf).mean((0, 2, 3))
             var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             with torch.no_grad():
                 m = self.momentum

@@ -6,7 +6,11 @@ Counterpart of ``dafne_tpu/ops/losses.py``: ``sigmoid_focal_loss`` (:32),
 ``rotated_iou_loss`` (:88), ``LossSpec`` (:117) and ``dafne_losses`` (:174).
 Every term is computed over all [N, K] locations and weighted by the
 positive mask; sums run over the whole batch (the reference's
-``dafne_outputs.py:620-731``).
+``dafne_outputs.py:620-731``).  With several processes each holds its rows
+of the global batch: the normalizers ``num_pos`` and ``loss_denorm`` are
+summed over the processes before their clamps (``all_reduce_sum``, no
+gradient), so each process's loss is its local numerator over the global
+normalizer and the sum over the processes is JAX's global loss.
 
 Gradients follow JAX's at ties: ``torch.maximum``/``torch.minimum`` (not
 ``relu`` or ``clamp``) split the gradient in half between equal arguments,
@@ -29,6 +33,7 @@ from dafne_torch.geometry.quads import (
     quad_area,
     sort_quadrilateral,
 )
+from dafne_torch.parallel.distributed import all_reduce_sum
 
 
 def _max0(x: torch.Tensor) -> torch.Tensor:
@@ -171,7 +176,7 @@ def dafne_losses(logits: torch.Tensor, corners_pred: torch.Tensor,
     ``ops.targets.assign_targets``."""
     labels = targets["labels"].long()
     pos = (labels != spec.num_classes).to(torch.float32)
-    num_pos = torch.clamp(pos.sum(), min=1.0)
+    num_pos = torch.clamp(all_reduce_sum(pos.sum()), min=1.0)
 
     # one_hot of the background label is all zeros, as jax.nn.one_hot's
     onehot = F.one_hot(labels, spec.num_classes + 1)[..., : spec.num_classes].to(logits.dtype)
@@ -184,7 +189,7 @@ def dafne_losses(logits: torch.Tensor, corners_pred: torch.Tensor,
     if spec.centerness == "none":
         ctr_t = torch.ones_like(ctr_t)
     ctr_t = ctr_t * pos
-    loss_denorm = torch.clamp(ctr_t.sum(), min=1e-6)
+    loss_denorm = torch.clamp(all_reduce_sum(ctr_t.sum()), min=1e-6)
 
     cp = sort_quadrilateral(corners_pred) if spec.sort_corners else corners_pred
     if spec.loc_loss_type in ("iou", "giou"):

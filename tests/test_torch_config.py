@@ -84,8 +84,9 @@ def test_every_recipe_builds_a_model(recipe):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every dafne_torch module and chip_smoke import with jax, flax, optax,
-    dafne_tpu, cv2, PIL and yaml blocked."""
+    """Every dafne_torch module (``dafne_torch.parallel.*`` with
+    ``torch.distributed`` among them) and chip_smoke import with jax, flax,
+    optax, dafne_tpu, cv2, PIL and yaml blocked."""
     modules = [m.name for m in pkgutil.walk_packages(dafne_torch.__path__, "dafne_torch.")]
     code = (
         "import sys\n"
@@ -94,6 +95,7 @@ def test_port_imports_nothing_of_jax():
         "import importlib\n"
         f"for m in {modules + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
+        "assert 'torch.distributed' in sys.modules\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
@@ -107,7 +109,9 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.data.image_io", "dafne_torch.data.datasets.dota",
               "dafne_torch.data.datasets.hrsc2016", "dafne_torch.data.datasets.ucas_aod",
               "dafne_torch.data.datasets.icdar15", "dafne_torch.utils.weight_import",
-              "dafne_torch.evaluation.result_merge", "dafne_torch.data.image_warp"):
+              "dafne_torch.evaluation.result_merge", "dafne_torch.data.image_warp",
+              "dafne_torch.parallel", "dafne_torch.parallel.distributed",
+              "dafne_torch.parallel.mesh"):
         assert m in modules
 
 

@@ -5,7 +5,8 @@
 
 Phases (any failure exits nonzero; no phase's failure is caught):
   1. the card, and an nvcc build of dafne_torch/csrc/*.cu for sm_90a (and g++
-     builds of the host libraries csrc/png_unfilter.cpp and image_warp.cpp);
+     builds of the host libraries csrc/png_unfilter.cpp, image_warp.cpp and
+     jpeg_decode.cpp);
   2. the suppression-matrix kernel (K1, S as bit rows) against its plain
      PyTorch version, packed, at N = 4096, batch 8, on a dense all-valid
      15-class mix and a 25%-valid class-major mix: bit rows equal word for
@@ -156,14 +157,34 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      NCCL ranks on the one card, what NCCL says (not a pass condition);
      each rank's step ms and peak memory.  Launches under
      launches_by_path["distributed"].
+ 19. JPEG, the synthetic and ICDAR15 recipes, and the server: (a) every
+     committed fixture of tests/data/jpeg decoded by csrc/jpeg_decode.cpp to
+     the SHA-256 of cv2.imread's pixels recorded beside it (this script
+     imports no cv2), and the decode of a 1280x720 JPEG timed; (b)
+     configs/synthetic/base.yaml with the JAX package's canary overrides
+     (SYN_IMAGES overfit scenes, SYN_ITERS steps, eval on synthetic_train)
+     through the CLI, then --eval-only: K3 once per step, the loss falling,
+     bf16 mAP above SYN_MAP_GATE; K3 and the NMS kernels held on the first
+     train and eval batch; (c) python -m dafne_torch.tools.serve on (b)'s
+     checkpoint: /healthz ok, PNG, .npy and JPEG bodies answered as the
+     in-process Predictor.detect answers the same decoded image (request ms
+     per body kind), 400 for an oversized header, a cut-off PNG and text;
+     the ICDAR15 recipe (configs/icdar15/base.yaml) on a tree of the four
+     1280x720 fixture JPEGs: ICDAR_STEPS train steps from the R-50.pkl,
+     --eval-only with the recipe's 9-size flip TTA ladder on 2 test images
+     (class bias -2), K1 and greedy held and timed on the eval canvas and
+     the smallest and largest TTA canvases, K3 on the train canvas; the
+     R-101 recipe's one eval batch.  Launches under launches_by_path
+     ["synthetic"], ["serve"] (the server process's, from its /healthz),
+     ["icdar15"] and ["icdar15_r101"].
 
 A failing phase prints "chip_smoke: phase <n> <name> failed: <message>"
 on stdout before the nonzero exit.
 
 The line before the last holds one JSON object with every kernel's numbers
 (K1's and greedy's launches from phases 4, 11's CLI run, 13's TTA run,
-15's two CLI runs, 16's eval, serve and TTA runs, 17 and 18, K3's from
-phases 7, 14, 15's and 16's CLI runs, 17 and 18, K2's from phase 11's
+15's two CLI runs, 16's eval, serve and TTA runs, 17, 18 and 19, K3's from
+phases 7, 14, 15's and 16's CLI runs, 17, 18 and 19, K2's from phase 11's
 replay;
 "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
@@ -177,6 +198,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
+import io
 import json
 import logging
 import os
@@ -286,6 +309,16 @@ NCCL_TRY_TIMEOUT_S = 60  # (e): NCCL with two ranks on one card
 # and the looser match of a detection (score, corner pixels) printed beside
 # match_rate's
 DIST_LOSS_RTOL, DIST_PARAM_ATOL, DIST_MATCH_TOL = 1e-2, 1e-3, (5e-3, 2.0)
+SYN_RECIPE = os.path.join("configs", "synthetic", "base.yaml")  # the data-free smoke recipe
+SYN_ITERS = 800  # the JAX package's canary: tools/int8_canary.py:46-66
+SYN_IMAGES = 32  # DEBUG.OVERFIT_NUM_IMAGES of the canary, evaluated on synthetic_train
+SYN_MAP_GATE = 50.0  # the canary's convergence gate (tools/int8_canary.py:14-15)
+JAX_CANARY_MAP = 82.36  # the JAX package's bf16 canary mAP on its TPU (INT8_CANARY.json)
+SERVE_REPS = 5  # requests per body kind through the HTTP server
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
+ICDAR_RECIPE = os.path.join("configs", "icdar15", "base.yaml")
+ICDAR_R101_RECIPE = os.path.join("configs", "icdar15", "r101.yaml")
+ICDAR_STEPS = 3  # train steps of the ICDAR15 recipe through the CLI
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -313,12 +346,17 @@ def log(*args):
     print(*args, flush=True)
 
 
-#: the phase running now, named in the failure line
-PHASE = {"n": 0, "name": "set-up"}
+#: the phase running now, named in the failure line, and when it began
+PHASE = {"n": 0, "name": "set-up", "t0": time.perf_counter()}
+#: wall seconds of each phase that has ended, by number
+PHASE_S = {}
 
 
 def phase(n, name):
-    PHASE.update(n=n, name=name)
+    """Start phase `n`, ending the one before (its wall time kept in PHASE_S)."""
+    now = time.perf_counter()
+    PHASE_S[PHASE["n"]] = round(now - PHASE["t0"], 1)
+    PHASE.update(n=n, name=name, t0=now)
 
 
 def run() -> int:
@@ -1041,6 +1079,432 @@ DOTA_10_CLASSES = [  # the DOTA-1.0 categories, in the devkit's id order
     "large-vehicle", "ship", "tennis-court", "basketball-court", "storage-tank",
     "soccer-ball-field", "roundabout", "harbor", "swimming-pool", "helicopter",
 ]
+def http_call(port, method, path, body=None, timeout=300):
+    """(status, JSON reply) of one request to the server on localhost."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def dets_arrays(dets):
+    """A detection list as match_rate's per-image arrays."""
+    return {"corners": np.asarray([d["corners"] for d in dets], np.float64).reshape(-1, 8),
+            "scores": np.asarray([d["score"] for d in dets], np.float64),
+            "classes": np.asarray([d["class"] for d in dets])}
+
+
+def time_nms(head, spec, what, card):
+    """``hold_nms`` on one decode's NMS input, then K1's and greedy's times
+    there (CUDA events, median of 20) beside their plain versions and
+    bounds, logged."""
+    from dafne_torch.ops.kernels import quad_nms as K
+
+    rows = hold_nms(head, spec, what)
+    pc, pk, pv = nms_kernel_inputs(head, spec)
+    thr = spec.nms_threshold
+    bits = K.suppression_bits_cuda(pc, pk, thr)
+    s_plain = K.suppression_matrix_plain(pc, pk, thr)
+    keep = K.greedy_keep_bits_cuda(bits, pv)
+    k1 = (cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr)),
+          cuda_ms(lambda: K.suppression_matrix_plain(pc, pk, thr), reps=3, warmup=1),
+          *suppression_bound(pk, pk.shape[1])[0])
+    g = (cuda_ms(lambda: K.greedy_keep_bits_cuda(bits, pv)),
+         cuda_ms(lambda: K.greedy_keep_plain(s_plain, pv), reps=3, warmup=1),
+         *greedy_bound(keep, pk.shape[1])[0])
+    log(f"[K1/greedy {what}] NMS input {rows[0]} ({rows[1]} valid slots, {rows[2]} kept): K1 "
+        f"bits equal to the packed plain S, greedy's keep-set to the plain walk; K1 "
+        f"kernel_ms={k1[0]:.4f} plain_ms={k1[1]:.2f} bound_ms={k1[2]:.5f} ({k1[3]}); greedy "
+        f"kernel_ms={g[0]:.4f} plain_ms={g[1]:.2f} bound_ms={g[2]:.5f} ({g[3]}) [{card}]")
+
+
+def phase_jpeg_recipes(card, pkl, rpkl, hold_k3_on_loader, bias_minus_2_checkpoint):
+    """Phase 19: (a) the committed JPEG fixtures decoded to cv2's hashes,
+    the 1280x720 decode timed; (b) the synthetic canary recipe through the
+    CLI (SYN_ITERS steps on SYN_IMAGES overfit scenes) and --eval-only,
+    bf16 mAP over SYN_MAP_GATE; (c) ``python -m dafne_torch.tools.serve``
+    on (b)'s checkpoint answering PNG, .npy and JPEG bodies as the
+    in-process Predictor does, 400 for oversized and undecodable bodies;
+    the ICDAR15 recipe from a tree of the 1280x720 fixtures (train, then
+    --eval-only with its TTA ladder) and the R-101 recipe's eval batch.
+    Returns {path: {kernel: launches}}."""
+    from dafne_torch.config import get_cfg
+    from dafne_torch.data import get_dataset, register_all_datasets
+    from dafne_torch.data import image_io as IO
+    from dafne_torch.data import jpeg as JPG
+    from dafne_torch.data.loader import DataLoader
+    from dafne_torch.data.mapper import eval_pad_hw, pad_target_hw, train_canvas_buckets
+    from dafne_torch.data.synthetic import load_synthetic
+    from dafne_torch.engine import train_loop
+    from dafne_torch.engine.checkpoint import Checkpointer
+    from dafne_torch.engine.predictor import Predictor
+    from dafne_torch.engine.trainer import make_location_tables
+    from dafne_torch.models import build_model
+    from dafne_torch.ops.kernels import assign as A
+    from dafne_torch.ops.kernels import quad_nms as K
+    from dafne_torch.ops.postprocess import DecodeSpec
+    from dafne_torch.ops.targets import AssignmentSpec
+    from dafne_torch.tools.train import main as cli_main
+
+    t19 = time.perf_counter()
+    launches = {}
+
+    def nms_launches():
+        return {"suppression_matrix": K.suppression_bits_cuda.launches,
+                "greedy_keep": K.greedy_keep_bits_cuda.launches}
+
+    # (a) the committed fixtures, decoded on this host to cv2's pixels
+    fixtures = os.path.join(ROOT, JPEG_FIXTURES)
+    with open(os.path.join(fixtures, "fixtures.json")) as f:
+        manifest = json.load(f)
+    JPG.reset_launch_counts()
+    t0 = time.perf_counter()
+    for name, entry in manifest["files"].items():
+        img = IO.read_image(os.path.join(fixtures, name))
+        if (list(img.shape) != entry["shape"]
+                or hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]):
+            raise SystemExit(f"JPEG fixture {name} ({entry['mode']}) decoded to other pixels "
+                             f"than cv2.imread's")
+    fixtures_s = time.perf_counter() - t0
+    decode_ms = {}
+    for name in ("text_1.jpg", "text_2.jpg", "text_3.jpg"):
+        with open(os.path.join(fixtures, name), "rb") as f:
+            data = f.read()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            IO.decode_image_bytes(data)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[f"{name} ({manifest['files'][name]['mode']})"] = round(statistics.median(ms), 2)
+    log(f"[jpeg] {len(manifest['files'])} committed fixtures ({JPG.decode.launches} library "
+        f"calls: baseline 4:4:4 / 4:2:2 / 4:2:0 / 4:4:0, progressive, restart intervals, "
+        f"optimized tables, gray, SOF1 with 16-bit tables, EXIF orientation 6, 1x1 and 7x13, "
+        f"cut-off baseline and progressive streams, four 1280x720) decoded to the SHA-256 of "
+        f"cv2.imread's pixels in {fixtures_s:.2f} s; decode of one 1280x720 JPEG from memory, "
+        f"ms (host clock, median of 5): {json.dumps(decode_ms)} [{card}]")
+
+    # (b) the synthetic canary recipe: train through the CLI, then --eval-only
+    syn_dir = os.path.join(ROOT, "output", "chip_smoke_synthetic")
+    shutil.rmtree(syn_dir, ignore_errors=True)
+    syn_recipe = os.path.join(ROOT, SYN_RECIPE)
+    syn_args = ["--config-file", syn_recipe, "DEBUG.OVERFIT_NUM_IMAGES", str(SYN_IMAGES),
+                "SOLVER.MAX_ITER", str(SYN_ITERS), "DATASETS.TEST", "('synthetic_train',)",
+                "OUTPUT_DIR", syn_dir]
+    scfg = get_cfg()
+    scfg.merge_from_file(syn_recipe)
+    scfg.merge_from_list(syn_args[2:])
+    # the CLI process's defaults: cuDNN picks its algorithms by heuristics,
+    # so a seed gives one run, as in any `python -m dafne_torch.tools.train`.
+    # Under phase 4's cudnn.benchmark it picks them by the clock, their
+    # rounding changes from run to run, and 800 steps spread that into
+    # mAPs on both sides of the gate (dafne_torch/tools/canary.py measures
+    # both ways)
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
+    A.reset_launch_counts()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syn_train = {}
+    t0 = time.perf_counter()
+    cli_main(syn_args, train_stats=syn_train)
+    torch.cuda.synchronize()
+    syn_train_s = time.perf_counter() - t0
+    syn_k3 = A.assign_argmin_cuda.launches
+    train_nms = nms_launches()
+    ((canvas, st),) = syn_train["steps"].items()
+    losses = st["loss"]
+    n_eval_batches = -(-SYN_IMAGES // scfg.TPU.EVAL_BATCH)
+    if syn_k3 != SYN_ITERS or len(losses) != SYN_ITERS or not np.isfinite(losses).all():
+        raise SystemExit(f"synthetic train: K3 {syn_k3} for {SYN_ITERS} steps, "
+                         f"{len(losses)} losses, finite {np.isfinite(losses).all()}")
+    if set(train_nms.values()) != {n_eval_batches}:
+        raise SystemExit(f"synthetic train's do_test: launches {train_nms} for {n_eval_batches} "
+                         f"batches")
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    if not last < first:
+        raise SystemExit(f"synthetic train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    syn_peak = torch.cuda.max_memory_allocated() / 2**30
+    K.reset_launch_counts()
+    syn_stats = {}
+    t0 = time.perf_counter()
+    res = cli_main(["--eval-only"] + syn_args, stats=syn_stats)
+    syn_eval_s = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = flags
+    eval_nms = nms_launches()
+    syn_map = res["synthetic_train"]["mAP"]
+    sst = syn_stats["synthetic_train"]
+    if set(eval_nms.values()) != {n_eval_batches} or sst["images"] != SYN_IMAGES:
+        raise SystemExit(f"synthetic eval: launches {eval_nms} for {n_eval_batches} batches, "
+                         f"{sst['images']} images")
+    if not syn_map > SYN_MAP_GATE:
+        raise SystemExit(f"synthetic canary: bf16 mAP {syn_map:.2f} is not above the canary's "
+                         f"gate {SYN_MAP_GATE}")
+    log(f"[synthetic] CLI --config-file {SYN_RECIPE} (R-50 full width, 3 classes, bf16, batch "
+        f"{scfg.SOLVER.IMS_PER_BATCH}, {canvas[0]}x{canvas[1]}, 90-degree rotations; the CLI's "
+        f"cuDNN settings: heuristics, TF32 convs) with the "
+        f"canary's overrides: {SYN_ITERS} steps on {SYN_IMAGES} overfit scenes in "
+        f"{syn_train_s:.1f} s wall (model build, loader, steps, checkpoints, do_test); step ms on "
+        f"CUDA events: first {st['ms'][0]:.1f}, median {statistics.median(st['ms'][1:]):.2f}; "
+        f"total loss, mean of the first and last 20 steps {first:.4f} -> {last:.4f}; K3 {syn_k3} "
+        f"launches (once per step); peak memory {syn_peak:.2f} GiB [{card}]")
+    log(f"[synthetic] --eval-only on synthetic_train ({SYN_IMAGES} images, batch "
+        f"{scfg.TPU.EVAL_BATCH}) in {syn_eval_s:.2f} s wall: eval loop "
+        f"{sst['images'] / sst['loop_s']:.2f} img/s (host clock); bf16 mAP {syn_map:.2f} "
+        f"(gate > {SYN_MAP_GATE}; the JAX package's canary recorded {JAX_CANARY_MAP} on its TPU, "
+        f"INT8_CANARY.json); K1 and greedy {eval_nms} launches, once per batch [{card}]")
+    # K3 and NMS held on the recipe's first train batch and first eval batch
+    register_all_datasets(scfg)
+    srecords = get_dataset("synthetic_train", scfg)
+    err_k3, _ = hold_k3_on_loader(scfg, srecords, 1, "synthetic train")
+    smodel = build_model(scfg, device="cuda")
+    Checkpointer(syn_dir).resume_or_load(smodel, scfg, resume=True)
+    smodel.eval()
+    with torch.inference_mode():
+        sbatch = next(iter(DataLoader(scfg, srecords, scfg.TPU.EVAL_BATCH,
+                                      pad_hw=eval_pad_hw(scfg, srecords), train=False)))
+        srows = hold_nms(smodel(sbatch["image"].cuda()), DecodeSpec.from_config(scfg),
+                         "the synthetic eval batch")
+    log(f"[synthetic] K3 equal to its plain version on the first train batch; K1 and greedy on "
+        f"the first eval batch's NMS input (rows, valid, kept) {srows} [{card}]")
+    launches["synthetic"] = {"assign_argmin": syn_k3,
+                             "suppression_matrix": train_nms["suppression_matrix"]
+                             + eval_nms["suppression_matrix"],
+                             "greedy_keep": train_nms["greedy_keep"] + eval_nms["greedy_keep"]}
+
+    # (c) the server on (b)'s checkpoint, as its own process
+    port = free_port()
+    serve_log = os.path.join(syn_dir, "serve.log")
+    with open(serve_log, "w") as err_f:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "dafne_torch.tools.serve", "--config-file", syn_recipe,
+             "--port", str(port), "OUTPUT_DIR", syn_dir],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+            stderr=err_f, text=True)
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            line = pool.submit(server.stdout.readline)
+            try:
+                startup = json.loads(line.result(timeout=240) or "null")
+            except Exception:
+                server.kill()
+                startup = None
+        if not startup:
+            with open(serve_log) as f:
+                raise SystemExit(f"the server did not start:\n{f.read()[-3000:]}")
+        serve_start_s = time.perf_counter() - t0
+        status, health = http_call(port, "GET", "/healthz")
+        if status != 200 or not health["ok"] or health["checkpoint_step"] != SYN_ITERS:
+            raise SystemExit(f"/healthz: {status} {health}")
+        bodies = {}
+        scenes = [r["image"] for r in load_synthetic("test", 2)]
+        for k, img in enumerate(scenes):
+            png_path = os.path.join(syn_dir, f"request{k}.png")
+            write_png(png_path, np.ascontiguousarray(img[:, :, ::-1]), 2)
+            with open(png_path, "rb") as f:
+                bodies[f"scene{k}.png"] = f.read()
+            buf = io.BytesIO()
+            np.save(buf, img)
+            bodies[f"scene{k}.npy"] = buf.getvalue()
+        for name in ("text_1.jpg", "prog_420.jpg"):
+            with open(os.path.join(fixtures, name), "rb") as f:
+                bodies[name] = f.read()
+        torch.backends.cudnn.benchmark = False  # the server process's default
+        ref = Predictor(smodel, scfg, batch=1)
+        request_ms, matched, total, exact = {}, 0, 0, 0
+        for name, body in bodies.items():
+            kind = name.rsplit(".", 1)[1]
+            decoded = np.load(io.BytesIO(body)) if kind == "npy" else IO.decode_image_bytes(body)
+            want = ref.detect([decoded])[0]
+            for _ in range(SERVE_REPS):
+                t0 = time.perf_counter()
+                status, out = http_call(port, "POST", "/detect", body)
+                request_ms.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise SystemExit(f"POST {name}: {status} {out}")
+            got = out["detections"]
+            m1, t1 = match_rate({name: dets_arrays(got)}, {name: dets_arrays(want)})
+            m2, t2 = match_rate({name: dets_arrays(want)}, {name: dets_arrays(got)})
+            if m1 != t1 or m2 != t2:
+                raise SystemExit(f"POST {name}: the server matched {m1}/{t1} of Predictor.detect's "
+                                 f"detections and Predictor {m2}/{t2} of the server's")
+            matched, total, exact = matched + m1, total + t1, exact + (got == json.loads(json.dumps(want)))
+        torch.backends.cudnn.benchmark = True
+        if total == 0:
+            raise SystemExit("the server's requests gave no detections to compare")
+        refused = {}
+        bomb = bytearray(bodies["prog_420.jpg"])
+        sof = bytes(bomb).index(b"\xff\xc2")
+        bomb[sof + 5:sof + 9] = struct.pack(">HH", 60000, 60000)
+        for name, body in (("a 60000x60000 JPEG header", bytes(bomb)),
+                           ("a cut-off PNG", bodies["scene0.png"][:100]), ("text", b"not an image")):
+            status, out = http_call(port, "POST", "/detect", body)
+            refused[name] = status
+            if status != 400:
+                raise SystemExit(f"POST {name}: {status} {out}, expected 400")
+        status, health = http_call(port, "GET", "/healthz")
+        served = len(bodies) * SERVE_REPS
+        if health["requests"] != served + 1 or set(health["launches"].values()) != {served + 1}:
+            raise SystemExit(f"/healthz after {served} requests and the warm-up: {health}")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+    launches["serve"] = dict(health["launches"])
+    ms_by_kind = {k: round(statistics.median(v), 2) for k, v in request_ms.items()}
+    log(f"[serve] python -m dafne_torch.tools.serve on the {SYN_ITERS}-step checkpoint "
+        f"(batch 1, canvas {startup['canvas']}): up in {serve_start_s:.1f} s (process start, "
+        f"model, restore, warm-up); /healthz ok; {len(bodies)} bodies x {SERVE_REPS}: request ms "
+        f"per body kind, client's host clock, median {json.dumps(ms_by_kind)} (png, npy: 256^2 "
+        f"synthetic scenes; jpg: a 1280x720 and a 77x53 fixture); {total} detections, each "
+        f"matched both ways to the in-process Predictor.detect on the same decoded image "
+        f"(score within 1e-4, corners within 1e-2; {exact} of {len(bodies)} replies equal "
+        f"exactly); 400 for {json.dumps(refused)}; the server's K1 and greedy launches "
+        f"{health['launches']} (once per request and the warm-up) [{card}]")
+    del smodel, ref
+
+    # the ICDAR15 recipe on a tree of the 1280x720 fixtures
+    icdar_dir = os.path.join(ROOT, "output", "chip_smoke_icdar")
+    shutil.rmtree(icdar_dir, ignore_errors=True)
+    os.environ["DAFNE_DATA_DIR"] = os.path.join(icdar_dir, "data")
+    texts = []
+    for name, lines in manifest["icdar"].items():
+        with open(os.path.join(fixtures, name), "rb") as f:
+            texts.append((f.read(), [(l["corners"], "###" if l["unreadable"] else f"word{k}")
+                                     for k, l in enumerate(lines)]))
+    write_icdar15_tree(os.path.join(icdar_dir, "data", "icdar-2015"),
+                       {"train": texts[:2], "val": texts[2:3], "test": [texts[3], texts[0]]})
+    icdar_recipe = os.path.join(ROOT, ICDAR_RECIPE)
+    i_out = os.path.join(icdar_dir, "run")
+    b = BATCH
+    icdar_args = ["--config-file", icdar_recipe, "SOLVER.REFERENCE_WORLD_SIZE", "0",
+                  "SOLVER.IMS_PER_BATCH", str(b), "TPU.EVAL_BATCH", str(b), "MODEL.WEIGHTS", pkl,
+                  "OUTPUT_DIR", i_out]
+    icfg = get_cfg()
+    icfg.merge_from_file(icdar_recipe)
+    icfg.merge_from_list(icdar_args[2:])
+    register_all_datasets(icfg)
+    irecords = get_dataset("icdar15_train", icfg) + get_dataset("icdar15_val", icfg)
+    A.reset_launch_counts()
+    JPG.reset_launch_counts()
+    itrain = {}
+    t0 = time.perf_counter()
+    cli_main(icdar_args + ["SOLVER.MAX_ITER", str(ICDAR_STEPS), "DATASETS.TEST", "()"],
+             train_stats=itrain)
+    torch.cuda.synchronize()
+    itrain_s = time.perf_counter() - t0
+    icdar_k3 = A.assign_argmin_cuda.launches
+    ilosses = [x for v in itrain["steps"].values() for x in v["loss"]]
+    if icdar_k3 != ICDAR_STEPS or len(ilosses) != ICDAR_STEPS or not np.isfinite(ilosses).all():
+        raise SystemExit(f"icdar15 train: K3 {icdar_k3} for {ICDAR_STEPS} steps, losses {ilosses}")
+    icanvases = {f"{h}x{w}": [round(x, 1) for x in v["ms"]] for (h, w), v in itrain["steps"].items()}
+    log(f"[icdar15] CLI --config-file {ICDAR_RECIPE} (R-50 from the R-50.pkl, 1 class, batch {b}) "
+        f"on a tree of the four 1280x720 fixture JPEGs ({len(irecords)} train and val records, "
+        f"'###' lines difficult, a 1-pixel line dropped): {ICDAR_STEPS} steps in {itrain_s:.1f} s "
+        f"wall, step ms per canvas on CUDA events {json.dumps(icanvases)}, losses "
+        f"{[round(x, 4) for x in ilosses]}; K3 {icdar_k3} launches; {JPG.decode.launches} JPEG "
+        f"decodes on the loader's threads [{card}]")
+    err_k3i, _ = hold_k3_on_loader(icfg, irecords, 1, "icdar15 train")
+    # K3's time on the recipe's train canvas, on the loader's first batch
+    ispec = AssignmentSpec.from_config(icfg)
+    ibatch = next(iter(DataLoader(icfg, irecords, b, seed=max(icfg.SEED, 0),
+                                  pad_hw=pad_target_hw(icfg, train=True),
+                                  buckets=train_canvas_buckets(icfg, irecords))))
+    ihw = train_loop.batch_canvas_hw(ibatch)
+    check_assign(ispec, make_location_tables(ihw, ispec, device="cuda"),
+                 train_loop.to_device(ibatch, "cuda"), f"icdar15 train canvas {ihw}", card)
+    bias_minus_2_checkpoint(icfg, i_out)
+    K.reset_launch_counts()
+    istats, itta = {}, {}
+    t0 = time.perf_counter()
+    ires = cli_main(["--eval-only"] + icdar_args, stats=istats, tta_stats=itta)
+    torch.cuda.synchronize()
+    ieval_s = time.perf_counter() - t0
+    i_nms = nms_launches()
+    ist, itt = istats["icdar15_test"], itta["icdar15_test"]
+    tta_steps = sum(sum(p["steps"].values()) for p in itt["per_image"])
+    n_icdar_batches = -(-ist["images"] // b)
+    copies = sorted({p["copies"] for p in itt["per_image"]})
+    if (set(i_nms.values()) != {n_icdar_batches + tta_steps} or ist["images"] != 2
+            or copies != [3 * len(icfg.TEST.AUG.MIN_SIZES)]):  # each size, hflip, vflip
+        raise SystemExit(f"icdar15 eval: launches {i_nms} for {n_icdar_batches} batches and "
+                         f"{tta_steps} TTA steps; {ist['images']} images, copies {copies}")
+    imodel = build_model(icfg, device="cuda")
+    Checkpointer(i_out).resume_or_load(imodel, icfg, resume=True)
+    imodel.eval()
+    itest = get_dataset("icdar15_test", icfg)
+    ispec_d = DecodeSpec.from_config(icfg)
+    for label, size in (("eval", icfg.INPUT.MIN_SIZE_TEST), ("TTA smallest",
+                        min(icfg.TEST.AUG.MIN_SIZES)), ("TTA largest", max(icfg.TEST.AUG.MIN_SIZES))):
+        vcfg = copy.deepcopy(icfg)
+        vcfg.merge_from_list(["INPUT.MIN_SIZE_TEST", str(size), "INPUT.MAX_SIZE_TEST",
+                              str(max(icfg.INPUT.MAX_SIZE_TEST, icfg.TEST.AUG.MAX_SIZE)
+                                  if label != "eval" else icfg.INPUT.MAX_SIZE_TEST)])
+        vpad = eval_pad_hw(vcfg, itest)
+        with torch.inference_mode():
+            vb = next(iter(DataLoader(vcfg, itest, b, pad_hw=vpad, train=False)))
+            time_nms(imodel(vb["image"].cuda()), ispec_d, f"icdar15 {label} canvas {vpad}", card)
+    del imodel
+    itta_split = {"s_per_image": round(itt["loop_s"] / itt["images"], 3),
+                  "wall_ms": [round(p["wall_ms"], 1) for p in itt["per_image"]],
+                  "merge_ms": [round(p["merge_ms"], 1) for p in itt["per_image"]],
+                  "eval_steps": itt["per_image"][0]["steps"],
+                  "boxes_in": [p["boxes_in"] for p in itt["per_image"]],
+                  "boxes_out": [p["boxes_out"] for p in itt["per_image"]]}
+    log(f"[icdar15] --eval-only (class bias -2) on icdar15_test (2 fixture JPEGs, MIN_SIZE_TEST "
+        f"{icfg.INPUT.MIN_SIZE_TEST}, MAX_SIZE_TEST {icfg.INPUT.MAX_SIZE_TEST}, "
+        f"DETECTIONS_PER_IMAGE {icfg.TEST.DETECTIONS_PER_IMAGE}) in {ieval_s:.1f} s wall: mAP "
+        f"{ires['icdar15_test']['mAP']:.4f}; TTA with the recipe's ladder "
+        f"{list(icfg.TEST.AUG.MIN_SIZES)} (MAX_SIZE {icfg.TEST.AUG.MAX_SIZE}, FLIP: {copies} copies "
+        f"per image) {json.dumps(itta_split)}, mAP {ires['tta']['icdar15_test']['mAP']:.4f}; K1 "
+        f"and greedy {i_nms} launches, once per eval batch and TTA eval step [{card}]")
+    launches["icdar15"] = {"assign_argmin": icdar_k3, **i_nms}
+
+    # the R-101 recipe: one eval batch from an R-101.pkl
+    r_out = os.path.join(icdar_dir, "r101")
+    r_recipe = os.path.join(ROOT, ICDAR_R101_RECIPE)
+    r_args = ["--eval-only", "--config-file", r_recipe, "TPU.EVAL_BATCH", str(b), "MODEL.WEIGHTS",
+              rpkl, "TEST.AUG.ENABLED", "False", "OUTPUT_DIR", r_out]
+    rcfg = get_cfg()
+    rcfg.merge_from_file(r_recipe)
+    rcfg.merge_from_list(r_args[3:])
+    bias_minus_2_checkpoint(rcfg, r_out)  # the R-101.pkl backbone, a random head at bias -2
+    K.reset_launch_counts()
+    rstats = {}
+    t0 = time.perf_counter()
+    rres = cli_main(r_args, stats=rstats)
+    r_s = time.perf_counter() - t0
+    r_nms = nms_launches()
+    if set(r_nms.values()) != {1} or rstats["icdar15_test"]["images"] != 2:
+        raise SystemExit(f"icdar15 R-101 eval: launches {r_nms}, {rstats['icdar15_test']}")
+    rmodel = build_model(rcfg, device="cuda")
+    Checkpointer(r_out).resume_or_load(rmodel, rcfg, resume=True)
+    rmodel.eval()
+    with torch.inference_mode():
+        rb = next(iter(DataLoader(rcfg, itest, b, pad_hw=eval_pad_hw(rcfg, itest), train=False)))
+        rrows = hold_nms(rmodel(rb["image"].cuda()), DecodeSpec.from_config(rcfg),
+                         "the icdar15 R-101 eval batch")
+    del rmodel
+    torch.cuda.empty_cache()
+    log(f"[icdar15] CLI --eval-only --config-file {ICDAR_R101_RECIPE} (R-101 from the "
+        f"R-101.pkl, a random head with class bias -2) on the 2 test JPEGs: one batch in {r_s:.1f} s wall, mAP "
+        f"{rres['icdar15_test']['mAP']:.4f}; K1 and greedy {r_nms} launches, equal to their plain "
+        f"versions on the batch's NMS input (rows, valid, kept) {rrows} [{card}]")
+    launches["icdar15_r101"] = r_nms
+    log(f"[phase 19] wall time {time.perf_counter() - t19:.1f} s; launches {json.dumps(launches)} "
+        f"[{card}]")
+    return launches
+
+
 DOTA_STRIDE = 824  # the devkit's 1024^2 tiles with a 200-pixel gap
 
 
@@ -1294,6 +1758,38 @@ def write_hrsc_tree(root, splits, rng, sizes=HRSC_SIZES, ships=(2, 6)):
     return {"expected": expected, "ids": ids, "planted": planted}
 
 
+def write_icdar15_tree(root, splits):
+    """Write an ICDAR-2015 tree in the layout ``data/datasets/icdar15.py``
+    reads: ImageSets/<split>.txt ("gt_img_<id>" lines),
+    images/<folder>/img_<id>.jpg and Annotations/<folder>/gt_img_<id>.txt
+    (UTF-8 with a byte-order mark, one "x0,y0,...,x3,y3,text" line per
+    word, "###" for an unreadable one), val in the train folder as in the
+    dataset.  `splits` maps "train", "val" and "test" to lists of (JPEG
+    bytes, [(8 corners, text)]); every image also gets a line 1 pixel wide,
+    which the loader's validity filter drops.  Returns {split: [ids]}."""
+    ids, n = {}, 0
+    for split, images in splits.items():
+        folder = "test" if split == "test" else "train"
+        for d in ("images", "Annotations"):
+            os.makedirs(os.path.join(root, d, folder), exist_ok=True)
+        ids[split] = []
+        for data, words in images:
+            n += 1
+            with open(os.path.join(root, "images", folder, f"img_{n}.jpg"), "wb") as f:
+                f.write(data)
+            lines = [",".join(str(int(round(v))) for v in corners) + "," + text
+                     for corners, text in words] + ["10,10,11,10,11,50,10,50,|"]
+            with open(os.path.join(root, "Annotations", folder, f"gt_img_{n}.txt"), "w",
+                      encoding="utf-8-sig") as f:
+                f.write("\r\n".join(lines) + "\r\n")
+            ids[split].append(n)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    for split, split_ids in ids.items():
+        with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+            f.write("".join(f"gt_img_{i}\n" for i in split_ids))
+    return ids
+
+
 class WarpRecorder:
     """While entered, every call of the host warp library
     (``data/image_warp.py``: ``resize_linear``, ``warp_affine_linear``) is
@@ -1507,11 +2003,12 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ("quad_nms", "assign", "png_unfilter", "image_warp")
+    sources = ("quad_nms", "assign", "png_unfilter", "image_warp", "jpeg_decode")
     with ThreadPoolExecutor(len(sources)) as pool:  # one compiler per source, all at once
         build_logs = dict(zip(sources, pool.map(kbuild.build, sources)))
     log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu and g++ png_unfilter.cpp (the host "
-        f"unfilter of phase 15) and image_warp.cpp (the host warps of phase 16) in parallel: "
+        f"unfilter of phase 15), image_warp.cpp (the host warps of phase 16) and "
+        f"jpeg_decode.cpp (the host JPEG decoder of phase 19) in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for name, build_log in build_logs.items():
         for line in build_log.splitlines():
@@ -2839,9 +3336,10 @@ def main() -> int:
     def hold_k3_on_loader(cfg_, records_, steps, what):
         """K3 against its plain version on the first `steps` batches of the
         train loader a CLI run of `cfg_` over `records_` draws (its seed,
-        its bucket ladder), each on its canvas's location tables."""
+        its batch, its bucket ladder), each on its canvas's location
+        tables."""
         ladder_ = train_canvas_buckets(cfg_, records_)
-        loader_ = DataLoader(cfg_, records_, b, seed=max(cfg_.SEED, 0),
+        loader_ = DataLoader(cfg_, records_, cfg_.SOLVER.IMS_PER_BATCH, seed=max(cfg_.SEED, 0),
                              pad_hw=pad_target_hw(cfg_, train=True),
                              device_aug=resolve_train_device_aug(cfg_), buckets=ladder_)
         spec_ = AssignmentSpec.from_config(cfg_)
@@ -3150,13 +3648,21 @@ def main() -> int:
     phase(18, "several processes")
     dist_launches = phase_distributed(card)
 
+    # ---- 19. JPEG, the synthetic and ICDAR15 recipes, and the server -------
+    phase(19, "JPEG, the synthetic and ICDAR15 recipes, and the server")
+    p19 = phase_jpeg_recipes(card, pkl, rpkl, hold_k3_on_loader, bias_minus_2_checkpoint)
+
+    def p19_sum(kernel):
+        return sum(v.get(kernel, 0) for v in p19.values())
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
          "launches": launches["suppression_matrix"] + eval_launches["suppression_matrix"]
          + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"]
          + hrsc_nms_launches + opt_launches["suppression_matrix"]
-         + r101_launches["suppression_matrix"] + dist_launches["suppression_matrix"],
+         + r101_launches["suppression_matrix"] + dist_launches["suppression_matrix"]
+         + p19_sum("suppression_matrix"),
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
@@ -3164,7 +3670,8 @@ def main() -> int:
                               "hrsc": hrsc_nms_launches,
                               "options": opt_launches["suppression_matrix"],
                               "r101": r101_launches["suppression_matrix"],
-                              "distributed": dist_launches["suppression_matrix"]},
+                              "distributed": dist_launches["suppression_matrix"],
+                              **{k: v["suppression_matrix"] for k, v in p19.items()}},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
@@ -3172,7 +3679,7 @@ def main() -> int:
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
          + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches
          + opt_launches["greedy_keep"] + r101_launches["greedy_keep"]
-         + dist_launches["greedy_keep"],
+         + dist_launches["greedy_keep"] + p19_sum("greedy_keep"),
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
@@ -3180,19 +3687,22 @@ def main() -> int:
                               "hrsc": hrsc_nms_launches,
                               "options": opt_launches["greedy_keep"],
                               "r101": r101_launches["greedy_keep"],
-                              "distributed": dist_launches["greedy_keep"]},
+                              "distributed": dist_launches["greedy_keep"],
+                              **{k: v["greedy_keep"] for k, v in p19.items()}},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35",
          "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3
          + opt_launches["assign_argmin"] + r101_launches["assign_argmin"]
-         + dist_launches["assign_argmin"],
+         + dist_launches["assign_argmin"] + p19_sum("assign_argmin"),
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
                               "files": files_launches["assign_argmin"], "hrsc": hrsc_k3,
                               "options": opt_launches["assign_argmin"],
                               "r101": r101_launches["assign_argmin"],
-                              "distributed": dist_launches["assign_argmin"]},
+                              "distributed": dist_launches["assign_argmin"],
+                              **{k: v["assign_argmin"] for k, v in p19.items()
+                                 if "assign_argmin" in v}},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
@@ -3200,6 +3710,9 @@ def main() -> int:
          "max_abs_err": max_err["suppression_matrix_2d"], "ms": k2_ms, "device_ms": k2_dev,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
     ]
+    phase(None, "report")
+    log(f"[phases] wall seconds per phase (host clock; 0 is the imports) "
+        f"{json.dumps(PHASE_S)}, in all {sum(PHASE_S.values()):.1f} [{card}]")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

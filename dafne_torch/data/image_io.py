@@ -1,14 +1,23 @@
 """Image files to uint8 arrays, without cv2 or PIL.
 
 Counterpart of ``dafne_tpu/data/mapper.py::read_image`` (``cv2.imread(path,
-cv2.IMREAD_COLOR)``, flipped to RGB for ``fmt == "RGB"``) and of the PIL
+cv2.IMREAD_COLOR)``, flipped to RGB for ``fmt == "RGB"``), of
+``tools/serve.py::decode_image_body``'s ``cv2.imdecode`` and of the PIL
 size reads in ``dafne_tpu/data/datasets/ucas_aod.py`` and ``icdar15.py``:
 
-- ``read_image(path, fmt)``: PNG and BMP to [H, W, 3] uint8 in BGR (or
-  RGB), converted as ``IMREAD_COLOR`` converts them: gray to three equal
-  channels, alpha dropped, a palette looked up.
+- ``read_image(path, fmt)`` and ``decode_image_bytes(data, fmt)``: PNG,
+  BMP and JPEG to [H, W, 3] uint8 in BGR (or RGB), converted as
+  ``IMREAD_COLOR`` converts them: gray to three equal channels, alpha
+  dropped, a palette looked up, a JPEG turned as its EXIF orientation
+  says.
 - ``image_size(path)``: (width, height) from the header alone (PNG IHDR,
-  the BMP header, a JPEG's SOFn marker), as PIL's ``Image.size``.
+  the BMP header, a JPEG's SOFn marker), as PIL's ``Image.size``: not
+  turned by the EXIF orientation.
+
+Every decoder reads the image's size from its header first and refuses an
+image of more than ``max_image_pixels()`` pixels before it allocates
+anything (``OPENCV_IO_MAX_IMAGE_PIXELS``, default 64 000 000, the cap of
+``tools/serve.py``).
 
 PNG: the chunks are parsed and their CRCs checked as libpng checks them (a
 bad critical chunk is an error, a bad ancillary chunk is skipped), the IDAT
@@ -16,19 +25,23 @@ chunks are inflated with ``zlib`` and each scanline is unfiltered by
 ``unfilter``, the host library ``csrc/png_unfilter.cpp`` (built with g++
 at first use; ``unfilter_plain`` is its NumPy version, for the tests).  Bit
 depths 1, 2, 4 and 8, not interlaced.  BMP: 24- and 32-bit, and 8-bit
-paletted, bottom-up or top-down.
+paletted, bottom-up or top-down.  JPEG: ``data/jpeg.py`` and the host
+library ``csrc/jpeg_decode.cpp`` (libjpeg-turbo's arithmetic, which OpenCV
+decodes with; ``decode_jpeg_plain`` is its NumPy version, for the tests).
 
-What is not ported raises ``NotImplementedError`` naming the file: JPEG
-decoding, 16-bit and interlaced PNGs, other BMP layouts.  A missing file
-raises ``FileNotFoundError``; a corrupt or truncated one ``ImageDecodeError``
-(where ``cv2.imread`` returns None, and the JAX package then raises
-``FileNotFoundError``).  Nothing decodes quietly with the plain version.
+What is not ported raises ``NotImplementedError`` naming the file: 16-bit
+and interlaced PNGs, other BMP layouts, the JPEG modes ``data/jpeg.py``
+lists.  A missing file raises ``FileNotFoundError``; a corrupt or truncated
+one, or one over the pixel cap, ``ImageDecodeError`` (where ``cv2.imread``
+returns None, and the JAX package then raises ``FileNotFoundError``).
+Nothing decodes quietly with the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 import struct
 import threading
 import zlib
@@ -43,10 +56,25 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: 
 
 
 _COUNT_LOCK = threading.Lock()  # the loader's threads decode at once
+DEFAULT_MAX_IMAGE_PIXELS = 64_000_000
 
 
 class ImageDecodeError(ValueError):
-    """A corrupt or truncated image file."""
+    """A corrupt or truncated image file, or one over the pixel cap."""
+
+
+def max_image_pixels() -> int:
+    """The pixel cap: ``OPENCV_IO_MAX_IMAGE_PIXELS`` when set, else
+    64 000 000 (``tools/serve.py``), read at each decode."""
+    return int(os.environ.get("OPENCV_IO_MAX_IMAGE_PIXELS", DEFAULT_MAX_IMAGE_PIXELS))
+
+
+def check_pixels(path: str, width: int, height: int, max_pixels: Optional[int] = None) -> None:
+    """Raise ImageDecodeError when a header's width x height is over the
+    pixel cap."""
+    cap = max_image_pixels() if max_pixels is None else max_pixels
+    if width * height > cap:
+        raise ImageDecodeError(f"{path}: image {width}x{height} exceeds the {cap}-pixel cap")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,18 +110,40 @@ def read_image(path: str, fmt: str = "BGR") -> np.ndarray:
     """[H, W, 3] uint8 of the image file at `path`, in BGR, or in RGB for
     ``fmt == "RGB"``; the pixels ``cv2.imread(path, cv2.IMREAD_COLOR)``
     gives."""
-    data = _read_bytes(path)
+    return decode_image_bytes(_read_bytes(path), fmt, path)
+
+
+def decode_image_bytes(data: bytes, fmt: str = "BGR", name: str = "<image bytes>") -> np.ndarray:
+    """[H, W, 3] uint8 of an encoded PNG, BMP or JPEG held in memory (a
+    request body), as ``read_image`` decodes a file; `name` names it in the
+    errors."""
     if data.startswith(PNG_SIGNATURE):
-        img = decode_png(path, data)
+        img = decode_png(name, data)
     elif data[:2] == b"BM":
-        img = decode_bmp(path, data)
+        img = decode_bmp(name, data)
     elif data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(f"{path}: JPEG decoding is not ported")
+        img = decode_jpeg(name, data)
     else:
-        raise NotImplementedError(f"{path}: not a PNG or BMP file")
+        raise NotImplementedError(f"{name}: not a PNG, BMP or JPEG file")
     if fmt == "RGB":
         img = np.ascontiguousarray(img[:, :, ::-1])
     return img
+
+
+def decode_jpeg(path: str, data: bytes) -> np.ndarray:
+    """A JPEG file's bytes to [H, W, 3] uint8 BGR, turned as its EXIF
+    orientation says (``data/jpeg.py::decode``)."""
+    from dafne_torch.data import jpeg
+
+    return jpeg.decode(path, data, max_image_pixels())
+
+
+def decode_jpeg_plain(path: str, data: bytes) -> np.ndarray:
+    """``decode_jpeg`` in NumPy and Python (``data/jpeg.py::decode_plain``),
+    for the tests at small sizes."""
+    from dafne_torch.data import jpeg
+
+    return jpeg.orient(jpeg.decode_plain(path, data), jpeg.exif_orientation(data))
 
 
 # ---- PNG --------------------------------------------------------------------
@@ -264,6 +314,7 @@ def png_to_bgr(header: PngHeader, palette: Optional[np.ndarray], rows: np.ndarra
 
 def decode_png(path: str, data: bytes) -> np.ndarray:
     header, palette, idat = png_chunks(path, data)
+    check_pixels(path, header.width, header.height)
     raw = inflate(path, idat, header)
     try:
         rows = unfilter(raw, header.height, header.rowbytes, header.bpp)
@@ -294,6 +345,7 @@ def decode_bmp(path: str, data: bytes) -> np.ndarray:
     if width <= 0 or height == 0:
         raise ImageDecodeError(f"{path}: invalid BMP size {width} x {height}")
     h = abs(height)
+    check_pixels(path, width, h)
     stride = (width * bits + 31) // 32 * 4
     if offset + stride * h > len(data):
         raise ImageDecodeError(f"{path}: truncated BMP pixel data")

@@ -73,10 +73,10 @@ def get_dataset(name: str, cfg=None) -> List[dict]:
 
 
 def register_all_datasets(cfg) -> None:
-    """Register every dataset family the port can load (idempotent): DOTA,
-    HRSC2016, UCAS-AOD and ICDAR15 under ``data_root()``, and the synthetic
-    generator scenes, which carry their images.  The JAX package's
-    cv2-drawn ``synthetic_{train,val,test}`` set is not ported."""
+    """Register every dataset family the port can load (idempotent), as
+    ``dafne_tpu/data/registry.py:67-72`` does: DOTA, HRSC2016, UCAS-AOD and
+    ICDAR15 under ``data_root()``, and the synthetic scenes, which carry
+    their images (``synthetic_{train,val,test}`` and the generator sets)."""
     from dafne_torch.data import synthetic
     from dafne_torch.data.datasets import dota, hrsc2016, icdar15, ucas_aod
 
@@ -84,4 +84,4 @@ def register_all_datasets(cfg) -> None:
     hrsc2016.register_hrsc(cfg)
     ucas_aod.register_ucas_aod(cfg)
     icdar15.register_icdar15(cfg)
-    synthetic.register_synthetic_gen(cfg)
+    synthetic.register_synthetic(cfg)

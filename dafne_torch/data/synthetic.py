@@ -1,12 +1,22 @@
 """Procedural rotated-object scenes, numpy only.
 
-A copy of ``dafne_tpu/data/datasets/synthetic.py::_make_gen_record`` for
-traffic on machines without OpenCV: the same random draws (so the same
-annotations for a seed), with shapes filled by point-in-polygon and
-point-in-ellipse tests on pixel centers instead of cv2.  Pixels need not
-match cv2's rasterizer.  Registered as ``synthetic_gen_{train,val,test}``
-(256^2) and ``synthetic_gen1024_{train,val,test}`` (1024^2, up to 96
-objects), with the JAX package's sizes and metadata.
+Two families, registered with the JAX package's names, sizes and metadata:
+
+- ``synthetic_{train,val,test}`` (64, 16 and 16 scenes at 256^2, 3
+  classes): the data-free smoke recipe's set (``configs/synthetic/
+  base.yaml``), a copy of ``dafne_tpu/data/datasets/synthetic.py``
+  :21-78.  The same random draws in the same order, and the quads filled
+  by ``data/raster.py::fill_poly``, which draws what ``cv2.fillPoly``
+  draws: the same records and the same pixels for every seed.
+- ``synthetic_gen_{train,val,test}`` (256^2) and
+  ``synthetic_gen1024_{train,val,test}`` (1024^2, up to 96 objects): a
+  copy of ``_make_gen_record`` for traffic on machines without OpenCV: the
+  same random draws (so the same annotations for a seed), with shapes
+  filled by point-in-polygon and point-in-ellipse tests on pixel centers
+  instead of cv2.  Pixels need not match cv2's rasterizer.
+
+Each registers ``sized``: with DEBUG.OVERFIT_NUM_IMAGES n only the first n
+scenes are made.
 """
 
 from __future__ import annotations
@@ -15,7 +25,68 @@ from typing import List
 
 import numpy as np
 
+from dafne_torch.data.raster import fill_poly
 from dafne_torch.data.registry import DatasetCatalog, MetadataCatalog
+
+CLASSES = ["disk", "square", "stripe"]
+
+
+def _make_record(seed: int, hw: int = 256, max_boxes: int = 6) -> dict:
+    """One scene: noise below 60 and 1 to `max_boxes` rotated rectangles,
+    each a gray level that names its class."""
+    rng = np.random.RandomState(seed)
+    img = (rng.rand(hw, hw, 3) * 60).astype(np.uint8)
+    n = rng.randint(1, max_boxes + 1)
+    annos = []
+    for _ in range(n):
+        cls = rng.randint(len(CLASSES))
+        cx, cy = rng.uniform(40, hw - 40, 2)
+        w = rng.uniform(20, 60)
+        h = rng.uniform(12, 40)
+        ang = rng.uniform(0, np.pi)
+        quad = _rot_rect(cx, cy, w, h, ang)
+        color = [int(60 + 60 * cls + rng.randint(40)) % 255] * 3
+        fill_poly(img, quad.astype(np.int32), color)
+        xs, ys = quad[:, 0], quad[:, 1]
+        annos.append({
+            "corners": quad.reshape(8).tolist(),
+            "bbox": [xs.min(), ys.min(), xs.max(), ys.max()],
+            "category_id": int(cls),
+            "difficult": False,
+            "area": float(w * h),
+        })
+    return {
+        "image": img,
+        "file_name": f"synthetic_{seed}.png",
+        "image_id": f"syn{seed}",
+        "height": hw,
+        "width": hw,
+        "annotations": annos,
+    }
+
+
+def load_synthetic(split: str, n: int = 64, hw: int = 256) -> List[dict]:
+    """The first n scenes of a split."""
+    base = {"train": 0, "val": 10_000, "test": 20_000}[split]
+    return [_make_record(base + i, hw=hw) for i in range(n)]
+
+
+def register_synthetic(cfg) -> None:
+    """synthetic_{train,val,test}: 64, 16 and 16 scenes at 256^2 (with
+    DEBUG.OVERFIT_NUM_IMAGES n only the first n are made), then the
+    generator families."""
+    for split, n in [("train", 64), ("val", 16), ("test", 16)]:
+        name = f"synthetic_{split}"
+        DatasetCatalog.register(name, lambda limit=None, s=split, k=n:
+                                load_synthetic(s, min(k, limit or k)), sized=True)
+        MetadataCatalog[name] = {
+            "evaluator_type": "synthetic",
+            "thing_classes": CLASSES,
+            "split": split,
+            "is_test": False,
+        }
+    register_synthetic_gen(cfg)
+
 
 GEN_CLASSES = ["stripe", "square", "ellipse", "ring", "smallrect", "wedge"]
 

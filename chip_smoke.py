@@ -177,15 +177,37 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      R-101 recipe's one eval batch.  Launches under launches_by_path
      ["synthetic"], ["serve"] (the server process's, from its /healthz),
      ["icdar15"] and ["icdar15_r101"].
+ 20. deformable convolution and the other backbones: (a) the sampler's
+     kernels (csrc/deform_conv.cu) against deform_im2col_plain at every
+     shape of the deformable path (DEFORM_SHAPES: the towers' P3-P7 and
+     the trunk's res3-res5 inputs, batch 8), bf16, f16 and f32, with and
+     without a mask, offsets in +-4 px: the forward bit-equal, the backward
+     within DEFORM_BWD_TOL of the plain version's autograd; at P3 bf16 the
+     kernels' ms and device ms, the plain version's (its backward timed
+     alone), grid_sample's (and its backward's) and the bound; (b)
+     configs/dota-1.0/1024.yaml with the deformable-interval R-50 and
+     deformable towers through the CLI: DEFORM_STEPS steps from the
+     R-50.pkl (K3 and the sampler's forward and backward once per call,
+     finite losses), --eval-only on one batch (class bias -2: K1 and
+     greedy once), every sampler call of that batch bit-equal to the plain
+     version on the model's own offsets, K1, greedy and K3 held, one train
+     step of that model in process with every sampler call's backward
+     within DEFORM_BWD_TOL of the plain version's float32 autograd on the
+     call's own inputs and gradient, one image's f32 forward on the card
+     within DEFORM_CARD_CPU_TOL of the CPU's; (c) each of FAMILY_CASES (R-18,
+     R-34, R-152, ResNet-LPF-50, DLA34, V-39-eSE, MobileNetV2) built on the
+     card at full width: FAMILY_STEPS train steps (step ms, peak memory, K3
+     held) and one eval batch (K1 and greedy held).  Launches under
+     launches_by_path ["deform_train"], ["deform_eval"] and ["backbones"].
 
 A failing phase prints "chip_smoke: phase <n> <name> failed: <message>"
 on stdout before the nonzero exit.
 
 The line before the last holds one JSON object with every kernel's numbers
 (K1's and greedy's launches from phases 4, 11's CLI run, 13's TTA run,
-15's two CLI runs, 16's eval, serve and TTA runs, 17, 18 and 19, K3's from
-phases 7, 14, 15's and 16's CLI runs, 17, 18 and 19, K2's from phase 11's
-replay;
+15's two CLI runs, 16's eval, serve and TTA runs, 17, 18, 19 and 20, K3's
+from phases 7, 14, 15's and 16's CLI runs, 17, 18, 19 and 20, K2's from
+phase 11's replay, the deformable sampler's from phase 20's CLI runs;
 "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
@@ -260,10 +282,12 @@ N_TTA_SCENES = 4  # scenes through the TTA CLI
 # HFLIP and VFLIP, 15 copies per image on canvases 256, 512, 768, 1024, 1536
 TTA_MIN_SIZES, TTA_MAX_SIZE = "(256, 512, 756, 1024, 1536)", 1536
 WARP_TOL = 1e-3  # rendered TTA copies against the CPU, 0-255 scale
-DA_STEPS = 10  # timed steps per run of the device-aug against host-aug comparison
+# timed steps per run of the device-aug against host-aug comparison (10, and
+# FILE_AB_STEPS 20, before phase 20 joined the run: its time is cut here)
+DA_STEPS = 5
 N_FILE_VAL = 32  # val tiles of the DOTA tree on disk (train: the N_TRAIN_SCENES scenes)
 FILE_STEPS = 4  # train steps of the CLI run from files
-FILE_AB_STEPS = 20  # timed steps per run of the files against in-memory comparison
+FILE_AB_STEPS = 10  # timed steps per run of the files against in-memory comparison
 # phase 16: the HRSC2016 multi-scale recipe (configs/pre-trained/hrsc_r50_ms.yaml)
 HRSC_RECIPE = os.path.join("configs", "pre-trained", "hrsc_r50_ms.yaml")
 N_HRSC_TRAIN, N_HRSC_TEST = 16, 16  # trainval and test BMPs of the HRSC tree
@@ -319,6 +343,40 @@ JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
 ICDAR_RECIPE = os.path.join("configs", "icdar15", "base.yaml")
 ICDAR_R101_RECIPE = os.path.join("configs", "icdar15", "r101.yaml")
 ICDAR_STEPS = 3  # train steps of the ICDAR15 recipe through the CLI
+# phase 20: deformable convolution and the other backbones
+DEFORM_RECIPE = os.path.join("configs", "dota-1.0", "1024.yaml")
+DEFORM_ARGS = ["MODEL.BACKBONE.NAME", "build_resnet_interval_backbone",
+               "MODEL.DAFNE.USE_DEFORMABLE", "True"]
+DEFORM_STEPS = 3  # train steps of the deformable recipe through the CLI
+# the deformable sampler's inputs on that path at 1024^2, batch 8: [C, H, W]
+# of the head towers' last conv at P3-P7 and of the trunk's 3x3s in res3-res5
+DEFORM_SHAPES = {"P3": (256, 128, 128), "P4": (256, 64, 64), "P5": (256, 32, 32),
+                 "P6": (256, 16, 16), "P7": (256, 8, 8), "res3": (128, 128, 128),
+                 "res4": (256, 64, 64), "res5": (512, 32, 32)}
+DEFORM_OFFSET_PX = 4.0  # offsets drawn in +-4 px: samples between pixels and off the map
+# the backward against the plain version's autograd, atol over max|plain
+# gradient|: float32 sums in another order (atomics in no fixed order);
+# bfloat16's and float16's plain autograd rounds each product and the
+# scatter of the gradient of x to the feature dtype, the kernel sums in
+# float32.  float16 keeps 3 more mantissa bits than bfloat16 (unit
+# roundoff 2^-11 against 2^-8), so its tolerance is a fifth of bfloat16's
+DEFORM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, torch.float16: 1e-2}
+DEFORM_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # the kernel's dtypes
+# the float32 forward of one 1024^2 image on the card against the CPU's
+# plain path, atol over max|CPU output|: cuDNN's and oneDNN's sums over
+# 2304 stacked taps in other orders, through 28 deformable convs
+DEFORM_CARD_CPU_TOL = 1e-3
+FAMILY_STEPS = 2  # train steps of each other backbone
+FAMILY_CASES = [  # each over the DOTA-1.0 1024 recipe, full width
+    # Detectron2's ResNet-18/34 widths (RES2_OUT_CHANNELS 64)
+    ("R-18", ["MODEL.RESNETS.DEPTH", "18", "MODEL.RESNETS.RES2_OUT_CHANNELS", "64"]),
+    ("R-34", ["MODEL.RESNETS.DEPTH", "34", "MODEL.RESNETS.RES2_OUT_CHANNELS", "64"]),
+    ("R-152", ["MODEL.RESNETS.DEPTH", "152"]),
+    ("ResNet-LPF-50", ["MODEL.BACKBONE.NAME", "build_resnet_lpf_backbone"]),
+    ("DLA34", ["MODEL.BACKBONE.NAME", "build_dafne_dla_fpn_backbone"]),
+    ("V-39-eSE", ["MODEL.BACKBONE.NAME", "build_vovnet_fpn_backbone"]),
+    ("MobileNetV2", ["MODEL.BACKBONE.NAME", "build_mnv2_backbone"]),
+]
 NARROW = [  # the narrow float32 R-50 of the card-against-CPU checks
     "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
     "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.FPN.OUT_CHANNELS", "32",
@@ -1505,6 +1563,534 @@ def phase_jpeg_recipes(card, pkl, rpkl, hold_k3_on_loader, bias_minus_2_checkpoi
     return launches
 
 
+def deform_inputs(c, h, w, dtype, gen):
+    """x [BATCH, c, h, w], offsets [BATCH, 18, h, w] f32 in +-DEFORM_OFFSET_PX
+    and a mask [BATCH, 9, h, w] in (0, 1), drawn on the card from `gen`."""
+    x = torch.randn((BATCH, c, h, w), generator=gen, device="cuda").to(dtype)
+    off = (torch.rand((BATCH, 18, h, w), generator=gen, device="cuda") * 2 - 1) * DEFORM_OFFSET_PX
+    mask = torch.rand((BATCH, 9, h, w), generator=gen, device="cuda").to(dtype)
+    return x, off, mask
+
+
+def grid_sample_grid(off, h, w):
+    """The 9 taps' sampling positions of `off` as one grid_sample grid
+    [N, 9h, w, 2] (align_corners=True coordinates), taps stacked on rows."""
+    from dafne_torch.layers.deform_conv import TAPS
+
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=off.device),
+                            torch.arange(w, dtype=torch.float32, device=off.device),
+                            indexing="ij")
+    rows = []
+    for k, (dy, dx) in enumerate(TAPS):
+        px = gx + dx + off[:, 2 * k + 1]
+        py = gy + dy + off[:, 2 * k]
+        rows.append(torch.stack([px * (2.0 / (w - 1)) - 1, py * (2.0 / (h - 1)) - 1], -1))
+    return torch.cat(rows, 1).contiguous()
+
+
+def deform_bound(n, c, h, w, itemsize, mask, backward=False):
+    """(bound ms, "bytes" or "operations") of one sampler call."""
+    from dafne_torch.ops.kernels import deform_conv as DK
+
+    if backward:
+        nbytes = DK.backward_bytes(n, c, h, w, itemsize, mask)
+        ops = DK.OPS_BACKWARD + (DK.OPS_BACKWARD_MASK if mask else 0)
+    else:
+        nbytes = DK.forward_bytes(n, c, h, w, itemsize, mask)
+        ops = DK.OPS_FORWARD + (DK.OPS_FORWARD_MASK if mask else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops * n * 9 * c * h * w / F32_OPS_NO_FMA * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def deform_plain_grads(x, off, mask, g, dtype=None):
+    """The plain version's autograd (grad x, grad offsets[, grad mask]) on
+    one call's inputs (x, f32 offsets, mask or None) and incoming gradient
+    g; with `dtype`, x, the mask and g cast to it first."""
+    from dafne_torch.layers.deform_conv import deform_im2col_plain
+
+    def cast(t):
+        return t if dtype is None or t is None else t.to(dtype)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (cast(x), off, cast(mask))
+              if t is not None]
+    return torch.autograd.grad(deform_im2col_plain(*leaves), leaves, cast(g))
+
+
+def grad_errs(got, want):
+    """{gradient: (max |got - want|, max |want|)} over x, the offsets and
+    the mask (where given)."""
+    return {what: (float((a.float() - b_.float()).abs().max()), float(b_.float().abs().max()))
+            for what, a, b_ in zip(("x", "offsets", "mask"), got, want)}
+
+
+def deform_backward_err(x, off, mask, g):
+    """grad_errs of the sampler's backward kernel against the plain
+    version's autograd in the same dtype, on one call's inputs."""
+    from dafne_torch.ops.kernels import deform_conv as DK
+
+    return grad_errs(DK.deform_im2col_backward_cuda(x, off, mask, g),
+                     deform_plain_grads(x, off, mask, g))
+
+
+def deform_backward_held(errs, dtype, where):
+    """Exit unless each gradient of `errs` (deform_backward_err) is within
+    DEFORM_BWD_TOL[dtype] of its max |plain|; returns {gradient: the
+    share of it}."""
+    ratios = {}
+    for what, (err, scale) in errs.items():
+        if not err <= DEFORM_BWD_TOL[dtype] * scale:
+            raise SystemExit(f"deform_im2col backward at {where} {dtype}: grad {what} max "
+                             f"|diff| {err} over max |plain| {scale}, tolerance "
+                             f"{DEFORM_BWD_TOL[dtype]} of it")
+        ratios[what] = err / scale if scale else 0.0
+    return ratios
+
+
+def check_deform(card):
+    """The sampler's kernels against the plain version at every shape of
+    the deformable path (DEFORM_SHAPES, batch 8), in each of
+    DEFORM_DTYPES, with and without a mask: the forward bit-equal, the
+    backward within DEFORM_BWD_TOL of the plain version's autograd; then
+    the times at P3 (the main path's largest call) beside the bound and
+    grid_sample's.  Returns the kernels line's numbers {"forward": {...},
+    "backward": {...}}."""
+    import torch.nn.functional as F
+
+    from dafne_torch.layers.deform_conv import deform_im2col_plain
+    from dafne_torch.ops.kernels import deform_conv as DK
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    compared = 0
+    for name, (c, h, w) in DEFORM_SHAPES.items():
+        for dtype in DEFORM_DTYPES:
+            x, off, mask = deform_inputs(c, h, w, dtype, gen)
+            for m in (None, mask):
+                got = DK.deform_im2col_forward_cuda(x, off, m)
+                want = deform_im2col_plain(x, off, m)
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise SystemExit(f"deform_im2col differs from its plain version at {name} "
+                                     f"{dtype} mask {m is not None}: {bad} of {got.numel()} "
+                                     f"columns, max |diff| {float((got - want).abs().max())}")
+                compared += got.numel()
+                del got, want
+    log(f"[deform] forward kernel bit-equal to deform_im2col_plain on {compared} columns: "
+        f"{', '.join(f'{k} {v}' for k, v in DEFORM_SHAPES.items())} ([C, H, W], batch {BATCH}), "
+        f"{', '.join(str(d)[6:] for d in DEFORM_DTYPES)}, with and without a mask, offsets in "
+        f"+-{DEFORM_OFFSET_PX} px [{card}]")
+
+    # the worst share of max |plain| per dtype, mask and gradient, and where
+    bwd_worst, bwd_max = {}, 0.0
+    for name, (c, h, w) in DEFORM_SHAPES.items():
+        for dtype in DEFORM_DTYPES:
+            x, off, mask = deform_inputs(c, h, w, dtype, gen)
+            g = torch.randn((BATCH, 9 * c, h, w), generator=gen, device="cuda").to(dtype)
+            for m in (None, mask):
+                errs = deform_backward_err(x, off, m, g)
+                ratios = deform_backward_held(errs, dtype, f"{name} mask {m is not None}")
+                bwd_max = max([bwd_max] + [e for e, _ in errs.values()])
+                key = f"{str(dtype)[6:]} {'mask' if m is not None else 'no mask'}"
+                for what, r in ratios.items():
+                    if r >= bwd_worst.setdefault(key, {}).get(what, (-1.0,))[0]:
+                        bwd_worst[key][what] = (r, name)
+            del x, off, mask, g
+    log(f"[deform] backward kernel against the plain version's autograd at every shape above, "
+        f"each dtype, with and without a mask (gradients of x, the offsets and the mask; the "
+        f"worst max |diff| as a share of max |plain|, and its shape; tolerance "
+        f"{json.dumps({str(k)[6:]: v for k, v in DEFORM_BWD_TOL.items()})}): "
+        f"{json.dumps({k: {w: f'{r:.3g} at {n}' for w, (r, n) in v.items()} for k, v in bwd_worst.items()})} "
+        f"[{card}]")
+
+    # times at P3 in bf16, as the main path calls it (no mask)
+    c, h, w = DEFORM_SHAPES["P3"]
+    x, off, _ = deform_inputs(c, h, w, torch.bfloat16, gen)
+    # grid_sample takes its grid in the input's dtype: bf16 coordinates
+    # move the samples by up to ~0.25 px at P3, so it is a yardstick of
+    # time only (the difference to the kernel is printed, not checked)
+    grid = grid_sample_grid(off, h, w).to(x.dtype)
+    cols = DK.deform_im2col_forward_cuda(x, off)
+    lib = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib_err = float((lib.view(BATCH, c, 9, h, w).transpose(1, 2).reshape(cols.shape).float()
+                     - cols.float()).abs().max())
+    fwd = {"max_abs_err": 0.0,  # bit-equal, or the checks above exit
+           "ms": cuda_ms(lambda: DK.deform_im2col_forward_cuda(x, off)),
+           "device_ms": device_ms(lambda: DK.deform_im2col_forward_cuda(x, off),
+                                  "deform_im2col_kernel"),
+           "plain_ms": cuda_ms(lambda: deform_im2col_plain(x, off), reps=5, warmup=1),
+           "library_ms": cuda_ms(lambda: F.grid_sample(x, grid, mode="bilinear",
+                                                       padding_mode="zeros", align_corners=True))}
+    fwd["bound_ms"], fwd["bound_by"] = deform_bound(BATCH, c, h, w, 2, False)
+    g = torch.randn((BATCH, 9 * c, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    glib = lib.detach().clone().normal_()
+    xs, os_ = x.detach().clone().requires_grad_(), off.detach().clone().requires_grad_()
+    plain_cols = deform_im2col_plain(xs, os_)  # the graph once: the backward alone is timed
+    bwd = {"max_abs_err": bwd_max,
+           "ms": cuda_ms(lambda: DK.deform_im2col_backward_cuda(x, off, None, g)),
+           "device_ms": device_ms(lambda: DK.deform_im2col_backward_cuda(x, off, None, g),
+                                  "deform_im2col_backward_kernel"),
+           "plain_ms": cuda_ms(lambda: torch.autograd.grad(plain_cols, (xs, os_), g,
+                                                           retain_graph=True), reps=5, warmup=1),
+           "library_ms": cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+               glib, x, grid, 0, 0, True, [True, True]))}
+    bwd["bound_ms"], bwd["bound_by"] = deform_bound(BATCH, c, h, w, 2, False, backward=True)
+    other = {}
+    for name, (c2, h2, w2) in DEFORM_SHAPES.items():
+        if name != "P3":
+            x2, off2, _ = deform_inputs(c2, h2, w2, torch.bfloat16, gen)
+            other[name] = round(cuda_ms(lambda: DK.deform_im2col_forward_cuda(x2, off2)), 4)
+    log(f"[deform] P3 bf16 [{BATCH}, {c}, {h}, {w}], no mask (the main path's largest call): "
+        f"forward kernel_ms={fwd['ms']:.4f} device_ms={fmt_ms(fwd['device_ms'])} "
+        f"plain_ms={fwd['plain_ms']:.3f} grid_sample_ms={fwd['library_ms']:.4f} (the 9 taps in one "
+        f"call, its grid in bf16; max |diff| to the kernel {lib_err:.3g}) bound_ms={fwd['bound_ms']:.4f} "
+        f"({fwd['bound_by']}); backward kernel_ms={bwd['ms']:.4f} "
+        f"device_ms={fmt_ms(bwd['device_ms'])} plain autograd_ms={bwd['plain_ms']:.3f} (its "
+        f"backward alone, the graph built once) "
+        f"grid_sampler_2d_backward_ms={bwd['library_ms']:.4f} bound_ms={bwd['bound_ms']:.4f} "
+        f"({bwd['bound_by']}); forward kernel_ms at the other shapes {json.dumps(other)} [{card}]")
+    del x, off, cols, lib, grid, g, glib, xs, os_, plain_cols
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "backward": bwd}
+
+
+def hold_deform_train_step(model, cfg, batch, hw, device_aug):
+    """One train step of `model` (``make_train_step``: forward, backward,
+    optimizer step) on `batch` at canvas `hw`, with the backward of every
+    sampler call held on that call's own inputs (x, the model's offsets,
+    its mask) and its own incoming gradient of the columns against the
+    plain version's autograd in float32 on the same values, within
+    DEFORM_BWD_TOL of x's dtype.  float32, not x's dtype: the model's
+    gradients cancel over the channels, and the plain bfloat16 autograd
+    rounds the sums of g * v01 and of g * v00 before it takes their
+    difference for the offsets' gradient, where the kernel takes
+    v01 - v00 first (6.2% of max |plain| apart at res4 on an H100 80GB
+    HBM3 at 700 W); the
+    plain version in x's dtype is measured against the same float32
+    reference beside it, unchecked.  Returns (calls held, {gradient:
+    (the worst max |diff| as a share of max |reference|, call)} for the
+    kernel, the same for the plain version in x's dtype, the step's total
+    loss, the tolerances applied by dtype)."""
+    from dafne_torch.engine.optimizer import build_optimizer
+    from dafne_torch.engine.trainer import make_train_step
+    from dafne_torch.layers import deform_conv as DL
+    from dafne_torch.ops.kernels import deform_conv as DK
+
+    calls = []
+    sampler = DL.deform_im2col
+
+    def spy(x, offsets, mask=None):
+        cols = sampler(x, offsets, mask)
+        rec = {"x": x.detach().contiguous(), "offsets": offsets.detach().float().contiguous(),
+               "mask": None if mask is None else mask.detach().contiguous()}
+        cols.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous()))
+        calls.append(rec)
+        return cols
+
+    optimizer, scheduler = build_optimizer(cfg, model)
+    step = make_train_step(model, cfg, hw, optimizer, scheduler, device_aug=device_aug)
+    DL.deform_im2col = spy
+    try:
+        loss = float(step(batch)["loss/total"])
+    finally:
+        DL.deform_im2col = sampler
+    worst, plain_worst, tols = {}, {}, {}
+    for i, rec in enumerate(calls):
+        if "g" not in rec:
+            raise SystemExit(f"sampler call {i} {tuple(rec['x'].shape)} had no gradient")
+        args = (rec["x"], rec["offsets"], rec["mask"], rec["g"])
+        dtype = rec["x"].dtype
+        tols[str(dtype)[6:]] = DEFORM_BWD_TOL[dtype]
+        where = f"train step call {i} {tuple(rec['x'].shape)} against float32"
+        ref = deform_plain_grads(*args, dtype=torch.float32)
+        for what, r in deform_backward_held(grad_errs(DK.deform_im2col_backward_cuda(*args), ref),
+                                            dtype, where).items():
+            if r >= worst.get(what, (-1.0,))[0]:
+                worst[what] = (r, i)
+        for what, (err, scale) in grad_errs(deform_plain_grads(*args), ref).items():
+            r = err / scale if scale else 0.0
+            if r >= plain_worst.get(what, (-1.0,))[0]:
+                plain_worst[what] = (r, i)
+        calls[i] = None
+    if not np.isfinite(loss):
+        raise SystemExit(f"deformable train step: total loss {loss}")
+    return len(calls), worst, plain_worst, loss, tols
+
+
+def phase_backbones(card, data_dir, pkl, train_cfg, train_records, hold_k3_on_loader,
+                    bias_minus_2_checkpoint):
+    """Phase 20: (a) the deformable sampler's kernels against the plain
+    version (``check_deform``); (b) the DOTA-1.0 1024 recipe with the
+    deformable-interval R-50 and deformable towers through the CLI:
+    DEFORM_STEPS train steps from the R-50.pkl, then --eval-only on one
+    batch (class bias -2), the sampler's kernels on every call of that
+    batch against the plain version, one train step with the backward of
+    every sampler call held (``hold_deform_train_step``), and the float32
+    forward of one image
+    on the card against the CPU; (c) each of FAMILY_CASES built on the card,
+    FAMILY_STEPS train steps and one eval batch.  Returns (the kernels
+    line's deform numbers, {path: {kernel: launches}})."""
+    from dafne_torch.config import get_cfg
+    from dafne_torch.data import get_dataset, register_all_datasets
+    from dafne_torch.data.loader import DataLoader
+    from dafne_torch.data.mapper import (DatasetMapper, eval_pad_hw, pad_target_hw,
+                                         train_canvas_buckets)
+    from dafne_torch.engine.inference import make_eval_step
+    from dafne_torch.engine.optimizer import build_optimizer
+    from dafne_torch.engine.train_loop import batch_canvas_hw, to_device
+    from dafne_torch.engine.trainer import (make_location_tables, make_train_step,
+                                            resolve_train_device_aug)
+    from dafne_torch.layers.deform_conv import DeformConv2d, deform_im2col_plain
+    from dafne_torch.models import build_model
+    from dafne_torch.ops.kernels import assign as A
+    from dafne_torch.ops.kernels import deform_conv as DK
+    from dafne_torch.ops.kernels import quad_nms as K
+    from dafne_torch.ops.postprocess import DecodeSpec
+    from dafne_torch.ops.targets import AssignmentSpec
+    from dafne_torch.tools.train import main as cli_main
+
+    t20 = time.perf_counter()
+    b = BATCH
+    # the CLI's own cuDNN setting for the phase (benchmark off, as phase
+    # 19b): under phase 4's benchmark the searches of the phase's first
+    # steps took ~75 s on an H100 80GB HBM3 at 700 W
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    deform = check_deform(card)
+    t_kernels = time.perf_counter() - t20
+
+    def counts():
+        return {"deform_im2col": DK.deform_im2col_forward_cuda.launches,
+                "deform_im2col_backward": DK.deform_im2col_backward_cuda.launches,
+                "assign_argmin": A.assign_argmin_cuda.launches,
+                "suppression_matrix": K.suppression_bits_cuda.launches,
+                "greedy_keep": K.greedy_keep_bits_cuda.launches}
+
+    def reset():
+        DK.reset_launch_counts()
+        A.reset_launch_counts()
+        K.reset_launch_counts()
+
+    # (b) the deformable recipe through the CLI, on phase 15's DOTA tree
+    os.environ["DAFNE_DATA_DIR"] = data_dir
+    out_dir = os.path.join(ROOT, "output", "chip_smoke_deform")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    recipe = os.path.join(ROOT, DEFORM_RECIPE)
+    args = ["--config-file", recipe] + DEFORM_ARGS + [
+        "SOLVER.REFERENCE_WORLD_SIZE", "0", "SOLVER.IMS_PER_BATCH", str(b), "TPU.EVAL_BATCH",
+        str(b), "MODEL.WEIGHTS", pkl, "DATASETS.TRAIN", "('dota_1_train_1024',)",
+        "DATASETS.TEST", "('dota_1_val_1024',)", "OUTPUT_DIR", out_dir]
+    dcfg = get_cfg()
+    dcfg.merge_from_file(recipe)
+    dcfg.merge_from_list(args[2:])
+    register_all_datasets(dcfg)
+    probe = build_model(dcfg, device="cpu")
+    n_trunk = sum(isinstance(m, DeformConv2d) for m in probe.backbone.modules())
+    n_head = sum(isinstance(m, DeformConv2d) for m in probe.head.modules())
+    per_forward = n_trunk + n_head * len(dcfg.MODEL.DAFNE.IN_FEATURES)
+    del probe
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dtrain = {}
+    t0 = time.perf_counter()
+    cli_main(args + ["SOLVER.MAX_ITER", str(DEFORM_STEPS), "DATASETS.TEST", "()"],
+             train_stats=dtrain)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    tc = counts()
+    losses = [x for v in dtrain["steps"].values() for x in v["loss"]]
+    step_ms = [x for v in dtrain["steps"].values() for x in v["ms"]]
+    want_tc = {"deform_im2col": per_forward * DEFORM_STEPS,
+               "deform_im2col_backward": per_forward * DEFORM_STEPS,
+               "assign_argmin": DEFORM_STEPS, "suppression_matrix": 0, "greedy_keep": 0}
+    if tc != want_tc or len(losses) != DEFORM_STEPS or not all(np.isfinite(losses)):
+        raise SystemExit(f"deformable recipe train: launches {tc}, expected {want_tc}; losses "
+                         f"{losses}")
+    records = get_dataset("dota_1_train_1024", dcfg)
+    k3_err, _ = hold_k3_on_loader(dcfg, records, DEFORM_STEPS, "deformable recipe train")
+    log(f"[deform] CLI --config-file {DEFORM_RECIPE} {' '.join(DEFORM_ARGS)} (R-50 full width, "
+        f"{n_trunk} deformable 3x3s in res3-res5, deformable last convs in {n_head} towers, "
+        f"bf16, batch {b}, 1024^2): {DEFORM_STEPS} steps from the R-50.pkl in {train_s:.2f} s "
+        f"wall, step ms (CUDA events) {[round(x, 2) for x in step_ms]}, total loss "
+        f"{[round(x, 4) for x in losses]}, peak {train_peak:.2f} GiB; launches {json.dumps(tc)} "
+        f"({per_forward} sampler calls a forward, each with its backward); K3 equal to its plain "
+        f"version on each step's batch [{card}]")
+
+    dmodel = bias_minus_2_checkpoint(dcfg, out_dir)
+    reset()
+    estats = {}
+    eval_args = ["--eval-only"] + args + ["DEBUG.OVERFIT_NUM_IMAGES", str(b)]
+    t0 = time.perf_counter()
+    res = cli_main(eval_args, stats=estats)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    ec = counts()
+    want_ec = {"deform_im2col": per_forward, "deform_im2col_backward": 0, "assign_argmin": 0,
+               "suppression_matrix": 1, "greedy_keep": 1}
+    dmap = res["dota_1_val_1024"].get("mAP")
+    if ec != want_ec or estats["dota_1_val_1024"]["images"] != b or not np.isfinite(dmap):
+        raise SystemExit(f"deformable recipe eval: launches {ec}, expected {want_ec}; mAP {dmap}")
+    evcfg = copy.deepcopy(dcfg)
+    evcfg.merge_from_list(eval_args[3:])
+    val = get_dataset("dota_1_val_1024", evcfg)
+    batch = next(iter(DataLoader(evcfg, val, b, pad_hw=eval_pad_hw(evcfg, val), train=False)))
+    images = batch["image"].cuda()
+    held = {"calls": 0, "columns": 0}
+
+    def hold(module, inputs):
+        x = inputs[0]
+        off = module.offset_conv(x).float()
+        got, want = DK.deform_im2col_forward_cuda(x, off), deform_im2col_plain(x, off)
+        if not torch.equal(got, want):
+            raise SystemExit(f"deform_im2col differs from its plain version on the eval batch's "
+                             f"call {held['calls']} {tuple(x.shape)}")
+        held["calls"] += 1
+        held["columns"] += got.numel()
+
+    hooks = [m.register_forward_pre_hook(hold) for m in dmodel.modules()
+             if isinstance(m, DeformConv2d)]
+    with torch.inference_mode():
+        head = dmodel(images)
+    for hk in hooks:
+        hk.remove()
+    rows = hold_nms(head, DecodeSpec.from_config(dcfg), "the deformable recipe's eval batch")
+    if held["calls"] != per_forward:
+        raise SystemExit(f"held {held['calls']} sampler calls of {per_forward}")
+    log(f"[deform] CLI --eval-only (class bias -2) on {b} val tiles in {eval_s:.2f} s wall, mAP "
+        f"{dmap:.4f}; launches {json.dumps(ec)}; on that batch every sampler call's columns "
+        f"({held['calls']} calls, {held['columns']} columns, the model's own offsets) bit-equal "
+        f"to the plain version, K1 and greedy equal to theirs (rows, valid, kept) {rows} [{card}]")
+
+    state = {k: v.detach().cpu() for k, v in dmodel.state_dict().items()}
+    del head
+
+    # one train step of that model on the recipe loader's first batch, every
+    # sampler call's backward held on the model's own offsets and gradients
+    device_aug = resolve_train_device_aug(dcfg)
+    tloader = DataLoader(dcfg, records, b, seed=max(dcfg.SEED, 0),
+                         pad_hw=pad_target_hw(dcfg, train=True), device_aug=device_aug,
+                         buckets=train_canvas_buckets(dcfg, records))
+    tbatches = iter(tloader)
+    tb = to_device(next(tbatches), "cuda")
+    tbatches.close()
+    thw = batch_canvas_hw(tb)
+    n_held, bwd_worst, plain_worst, tloss, tols = hold_deform_train_step(dmodel, dcfg, tb, thw,
+                                                                         device_aug)
+    if n_held != per_forward:
+        raise SystemExit(f"held the backward of {n_held} sampler calls of {per_forward}")
+
+    def shares(worst):
+        return json.dumps({k: f"{r:.3g} at call {i}" for k, (r, i) in worst.items()})
+
+    log(f"[deform] one train step of that model (canvas {thw}, batch {b}, total loss {tloss:.4f}): "
+        f"every sampler call's backward kernel ({n_held} calls, no mask, the model's own offsets "
+        f"and incoming gradients) against the plain version's autograd in float32 on the same "
+        f"values, the worst max |diff| as a share of max |reference| {shares(bwd_worst)} "
+        f"(tolerance {json.dumps(tols)}); the plain version in bf16 against the same reference "
+        f"{shares(plain_worst)} (not checked) [{card}]")
+    del dmodel, tb
+    torch.cuda.empty_cache()
+
+    # one image in float32: the card against the CPU's plain path, same weights
+    f32 = copy.deepcopy(dcfg)
+    f32.TPU.COMPUTE_DTYPE = "float32"
+    torch.cuda.empty_cache()
+    card_model = build_model(f32, device="cuda")
+    card_model.load_state_dict(state)
+    cpu_model = build_model(f32, device="cpu")
+    cpu_model.load_state_dict(state)
+    one = images[:1]
+    with torch.inference_mode():
+        got = card_model(one)
+        t0 = time.perf_counter()
+        want = cpu_model(one.cpu())
+        cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for key in ("logits", "corners", "center", "ctrness"):
+        for lvl, (a, w_) in enumerate(zip(got[key], want[key])):
+            rel = float((a.cpu() - w_).abs().max()) / max(float(w_.abs().max()), 1e-6)
+            worst = max(worst, rel)
+    if not worst <= DEFORM_CARD_CPU_TOL:
+        raise SystemExit(f"the deformable model's f32 forward on the card differs from the CPU by "
+                         f"{worst:.3g} of the output's max (tolerance {DEFORM_CARD_CPU_TOL})")
+    log(f"[deform] one 1024^2 image in f32, the same weights: card (kernels) against the CPU "
+        f"(plain sampler, {cpu_s:.1f} s): every output within {worst:.3g} of its max "
+        f"(tolerance {DEFORM_CARD_CPU_TOL}) [{card}]")
+    del card_model, cpu_model, got, want, state
+    torch.cuda.empty_cache()
+    launches = {"deform_train": tc, "deform_eval": ec}
+
+    # (c) each other backbone family at full width: train steps, one eval batch
+    fmapper = DatasetMapper(train_cfg, (CANVAS, CANVAS))
+    fbatches = []
+    for i in range(FAMILY_STEPS):
+        ex = [fmapper(r, np.random.RandomState(200 + 8 * i + j))
+              for j, r in enumerate(train_records[i * b:(i + 1) * b])]
+        fb = gt_tensors(ex, "cuda")
+        fb["image"] = torch.from_numpy(np.stack([e["image"] for e in ex])).cuda()
+        fbatches.append(fb)
+    rows_by = {}
+    fam = {"assign_argmin": 0, "suppression_matrix": 0, "greedy_keep": 0}
+    for name, extra in FAMILY_CASES:
+        fcfg = copy.deepcopy(train_cfg)
+        fcfg.merge_from_list(extra)
+        t0 = time.perf_counter()
+        fmodel = build_model(fcfg, device="cuda", generator=torch.Generator().manual_seed(20))
+        optimizer, scheduler = build_optimizer(fcfg, fmodel)
+        fstep = make_train_step(fmodel, fcfg, (CANVAS, CANVAS), optimizer, scheduler)
+        fspec = AssignmentSpec.from_config(fcfg)
+        ftables = make_location_tables((CANVAS, CANVAS), fspec, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms, losses = [], []
+        for fb in fbatches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = fstep(fb)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t1) * 1e3, 2))
+            losses.append(round(float(metrics["loss/total"]), 4))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        k3 = A.assign_argmin_cuda.launches
+        for i, fb in enumerate(fbatches):
+            assign_equal(fspec, ftables, fb, f"{name} step {i}")
+        if k3 != FAMILY_STEPS or not all(np.isfinite(losses)):
+            raise SystemExit(f"{name}: K3 {k3} for {FAMILY_STEPS} steps, losses {losses}")
+        with torch.no_grad():
+            fmodel.head.cls_logits.bias.fill_(-2.0)
+        estep = make_eval_step(fmodel, fcfg, (CANVAS, CANVAS))
+        K.reset_launch_counts()
+        det = estep(fbatches[0]["image"])
+        torch.cuda.synchronize()
+        nms = (K.suppression_bits_cuda.launches, K.greedy_keep_bits_cuda.launches)
+        if nms != (1, 1) or not torch.isfinite(det["corners"]).all():
+            raise SystemExit(f"{name}: eval batch launches {nms}")
+        with torch.inference_mode():
+            rows_by[name] = hold_nms(fmodel(fbatches[0]["image"]), DecodeSpec.from_config(fcfg),
+                                     f"{name} eval batch")
+        n_params = sum(p.numel() for p in fmodel.parameters())
+        log(f"[backbones] {name} ({' '.join(extra)}; {n_params / 1e6:.1f} M parameters, bf16, "
+            f"batch {b}, 1024^2): {FAMILY_STEPS} train steps, step ms (host clock, synchronised; "
+            f"the first holds the first call's set-up) {ms}, total loss {losses}, peak "
+            f"{peak:.2f} GiB; K3 {k3} launches, equal to its plain version on each step's batch; one eval batch "
+            f"(class bias -2): K1 and greedy once each, equal to their plain versions (rows, "
+            f"valid, kept) {rows_by[name]}; {time.perf_counter() - t0:.2f} s wall with the "
+            f"build [{card}]")
+        fam["assign_argmin"] += k3
+        fam["suppression_matrix"] += nms[0]
+        fam["greedy_keep"] += nms[1]
+        del fmodel, optimizer, scheduler, fstep, estep, det
+        torch.cuda.empty_cache()
+    del fbatches
+    torch.backends.cudnn.benchmark = benchmark
+    launches["backbones"] = fam
+    log(f"[phase 20] wall time {time.perf_counter() - t20:.1f} s (kernel checks "
+        f"{t_kernels:.1f} s); launches {json.dumps(launches)} [{card}]")
+    return deform, launches
+
+
 DOTA_STRIDE = 824  # the devkit's 1024^2 tiles with a 200-pixel gap
 
 
@@ -2003,10 +2589,10 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ("quad_nms", "assign", "png_unfilter", "image_warp", "jpeg_decode")
+    sources = ("quad_nms", "assign", "deform_conv", "png_unfilter", "image_warp", "jpeg_decode")
     with ThreadPoolExecutor(len(sources)) as pool:  # one compiler per source, all at once
         build_logs = dict(zip(sources, pool.map(kbuild.build, sources)))
-    log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu and g++ png_unfilter.cpp (the host "
+    log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu, deform_conv.cu and g++ png_unfilter.cpp (the host "
         f"unfilter of phase 15), image_warp.cpp (the host warps of phase 16) and "
         f"jpeg_decode.cpp (the host JPEG decoder of phase 19) in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3655,6 +4241,14 @@ def main() -> int:
     def p19_sum(kernel):
         return sum(v.get(kernel, 0) for v in p19.values())
 
+    # ---- 20. deformable convolution and the other backbones ---------------
+    phase(20, "deformable convolution and the other backbones")
+    deform, p20 = phase_backbones(card, data_dir, pkl, train_cfg, train_records,
+                                  hold_k3_on_loader, bias_minus_2_checkpoint)
+
+    def p20_sum(kernel):
+        return sum(v.get(kernel, 0) for v in p20.values())
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
@@ -3662,7 +4256,7 @@ def main() -> int:
          + tta_launches["suppression_matrix"] + files_launches["suppression_matrix"]
          + hrsc_nms_launches + opt_launches["suppression_matrix"]
          + r101_launches["suppression_matrix"] + dist_launches["suppression_matrix"]
-         + p19_sum("suppression_matrix"),
+         + p19_sum("suppression_matrix") + p20_sum("suppression_matrix"),
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
@@ -3671,7 +4265,8 @@ def main() -> int:
                               "options": opt_launches["suppression_matrix"],
                               "r101": r101_launches["suppression_matrix"],
                               "distributed": dist_launches["suppression_matrix"],
-                              **{k: v["suppression_matrix"] for k, v in p19.items()}},
+                              **{k: v["suppression_matrix"] for k, v in p19.items()},
+                              **{k: v["suppression_matrix"] for k, v in p20.items()}},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "greedy_keep", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
@@ -3679,7 +4274,7 @@ def main() -> int:
          "launches": launches["greedy_keep"] + eval_launches["greedy_keep"]
          + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches
          + opt_launches["greedy_keep"] + r101_launches["greedy_keep"]
-         + dist_launches["greedy_keep"] + p19_sum("greedy_keep"),
+         + dist_launches["greedy_keep"] + p19_sum("greedy_keep") + p20_sum("greedy_keep"),
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
@@ -3688,27 +4283,36 @@ def main() -> int:
                               "options": opt_launches["greedy_keep"],
                               "r101": r101_launches["greedy_keep"],
                               "distributed": dist_launches["greedy_keep"],
-                              **{k: v["greedy_keep"] for k, v in p19.items()}},
+                              **{k: v["greedy_keep"] for k, v in p19.items()},
+                              **{k: v["greedy_keep"] for k, v in p20.items()}},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "assign_argmin", "route": "cuda", "source": "dafne_torch/csrc/assign.cu",
          "replaces": "dafne_tpu/ops/pallas/assign.py:35",
          "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3
          + opt_launches["assign_argmin"] + r101_launches["assign_argmin"]
-         + dist_launches["assign_argmin"] + p19_sum("assign_argmin"),
+         + dist_launches["assign_argmin"] + p19_sum("assign_argmin") + p20_sum("assign_argmin"),
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
                               "files": files_launches["assign_argmin"], "hrsc": hrsc_k3,
                               "options": opt_launches["assign_argmin"],
                               "r101": r101_launches["assign_argmin"],
                               "distributed": dist_launches["assign_argmin"],
                               **{k: v["assign_argmin"] for k, v in p19.items()
-                                 if "assign_argmin" in v}},
+                                 if "assign_argmin" in v},
+                              **{k: v["assign_argmin"] for k, v in p20.items()}},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:128", "launches": k2_launches,
          "max_abs_err": max_err["suppression_matrix_2d"], "ms": k2_ms, "device_ms": k2_dev,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        *({"name": name, "route": "cuda", "source": "dafne_torch/csrc/deform_conv.cu",
+           "replaces": "dafne_tpu/layers/deform_conv.py:26 (XLA gathers; no Pallas kernel)",
+           "launches": p20_sum(name),
+           "launches_by_path": {k: v[name] for k, v in p20.items() if name in v},
+           **deform[part]}
+          for name, part in (("deform_im2col", "forward"),
+                             ("deform_im2col_backward", "backward"))),
     ]
     phase(None, "report")
     log(f"[phases] wall seconds per phase (host clock; 0 is the imports) "

@@ -44,6 +44,13 @@ def build_defaults() -> CfgNode:
     _C.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
     _C.MODEL.RESNETS.STRIDE_IN_1X1 = True
     _C.MODEL.RESNETS.RES5_DILATION = 1
+    _C.MODEL.RESNETS.DEFORM_INTERVAL = 1  # build_resnet_interval_backbone
+
+    # the other backbone families' variants
+    _C.MODEL.DLA = CfgNode()
+    _C.MODEL.DLA.CONV_BODY = "DLA34"
+    _C.MODEL.VOVNET = CfgNode()
+    _C.MODEL.VOVNET.CONV_BODY = "V-39-eSE"
 
     _C.MODEL.FPN = CfgNode()
     _C.MODEL.FPN.IN_FEATURES = ["res3", "res4", "res5"]

@@ -7,12 +7,19 @@ the optimizer's param groups "default", "bias" and "norm",
 with frozen parameters set to ``requires_grad=False``; ``build_optimizer``
 (:97) with ``SOLVER.CLIP_GRADIENTS``; and ``auto_scale_config`` (:140).
 
-Labels are computed on each parameter's flax path (conv ``weight`` is the
-flax ``kernel``, a norm's ``weight`` its ``scale``), with the JAX rules in
-their order: backbone norm leaves and running stats are frozen, then any
-``bias`` is "bias" (the head norms' too), then norm-module leaves and
-``scale`` are "norm" (GroupNorm's and the per-level BatchNorms'), the rest "default" (``head.scales`` too); at ``FREEZE_AT`` f
-the stem and stages res2..res<f> are frozen.
+Labels are computed on each parameter's flax path (a conv's or Linear's
+``weight`` is the flax ``kernel``, a GroupNorm's or BatchNorm's ``weight``
+its ``scale``, a FrozenBN's ``weight`` keeps its name), with the JAX rules
+in their order: backbone leaves under a module whose name holds "norm",
+and running stats, are frozen, then any ``bias`` is "bias" (the head
+norms' too), then norm-module leaves and ``scale`` are "norm" (GroupNorm's
+and the per-level BatchNorms'), the rest "default" (``head.scales`` too);
+at ``FREEZE_AT`` f every path holding "backbone/stem" and the stages
+res2..res<f> are frozen.  JAX's quirks stay: a DLA, VoVNet or MobileNetV2
+FrozenBN is named ``*_bn``, so its ``weight`` is "default" and its ``bias``
+"bias" and both train (its running stats are buffers here, frozen there);
+and "backbone/stem" freezes VoVNet's ``stem1``-``stem3`` and MobileNetV2's
+``stem`` with their BNs.
 
 The update equals the optax chain per group: clip (per group, like optax's
 clip inside each ``multi_transform`` group), coupled weight decay, momentum
@@ -36,6 +43,8 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from dafne_torch.models.layers import FrozenBN
+
 
 def _warmup_multistep_factor(count: int, steps, gamma: float, warmup_factor: float,
                              warmup_iters: int, warmup_method: str = "linear") -> float:
@@ -55,19 +64,27 @@ def warmup_multistep_schedule(base_lr: float, steps, gamma: float, warmup_factor
         count, sorted(steps), gamma, warmup_factor, warmup_iters, warmup_method)
 
 
-def flax_path(name: str, param: torch.Tensor) -> str:
-    """The flax tree path ("a/b/leaf") of a port parameter name."""
+def flax_path(name: str, param: torch.Tensor, frozen_bn: bool = False) -> str:
+    """The flax tree path ("a/b/leaf") of a port parameter name; `frozen_bn`
+    when the parameter is a FrozenBN's."""
     module, _, leaf = name.rpartition(".")
-    if leaf == "weight":
-        leaf = "kernel" if param.ndim == 4 else "scale"
+    if leaf == "weight" and not frozen_bn:
+        leaf = "kernel" if param.ndim in (2, 4) else "scale"
     return "/".join(module.split(".") + [leaf]) if module else leaf
+
+
+def flax_paths(model: nn.Module) -> Dict[str, str]:
+    """Parameter name -> its flax path, for every parameter of `model`."""
+    frozen_bn = {n for n, m in model.named_modules() if isinstance(m, FrozenBN)}
+    return {name: flax_path(name, p, name.rpartition(".")[0] in frozen_bn)
+            for name, p in model.named_parameters()}
 
 
 def _param_labels(model: nn.Module) -> Dict[str, str]:
     """Parameter name -> "frozen" / "bias" / "norm" / "default"."""
     labels = {}
-    for name, p in model.named_parameters():
-        names = flax_path(name, p).split("/")
+    for name, path in flax_paths(model).items():
+        names = path.split("/")
         in_backbone = "backbone" in "/".join(names)
         is_norm_mod = any("norm" in n for n in names[:-1])
         leaf = names[-1]
@@ -86,9 +103,9 @@ def _freeze_labels(labels: Dict[str, str], model: nn.Module, freeze_at: int) -> 
     """Relabel the backbone stages <= freeze_at "frozen"."""
     prefixes = ["backbone/stem"] if freeze_at >= 1 else []
     prefixes += [f"backbone/res{s}_" for s in range(2, freeze_at + 1)]
-    params = dict(model.named_parameters())
+    paths = flax_paths(model)
     return {
-        name: "frozen" if any(pre in flax_path(name, params[name]) for pre in prefixes) else lab
+        name: "frozen" if any(pre in paths[name] for pre in prefixes) else lab
         for name, lab in labels.items()
     }
 

@@ -16,7 +16,8 @@ corner strategies:
   angle             xywha_pred -> the box (x, y, w, h) rotated by
                     alpha = sigmoid * pi - pi / 2 about its corners' mean
 
-Deformable towers (MODEL.DAFNE.USE_DEFORMABLE) are not ported and raise.
+With MODEL.DAFNE.USE_DEFORMABLE the last conv of each tower but the share
+tower is a ``DeformConv2d`` (``layers/deform_conv.py``) with learned offsets.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dafne_torch.layers import deform_conv
 from dafne_torch.models.layers import BatchNorm, Conv2d, GroupNorm, mish
 
 CORNER_PREDICTIONS = ("direct", "iterative", "center-to-corner", "offset", "angle")
@@ -51,11 +53,11 @@ class Tower(nn.Module):
     BN and SyncBN both normalize over the global batch, as JAX's one SPMD
     program does: with several processes ``BatchNorm`` sums its statistics
     over them.  ``forward(x, level, train)``: `train` moves the BN running
-    statistics.  The deformable last conv (USE_DEFORMABLE) is not ported:
-    ``DAFNeHead`` raises for it."""
+    statistics.  With `use_deformable` the last conv, ``conv{n-1}``, is a
+    bias-free ``DeformConv2d`` with learned offsets, as in JAX."""
 
     def __init__(self, num_convs: int, channels: int, norm: str = "GN", num_levels: int = 5,
-                 use_relu: bool = True):
+                 use_relu: bool = True, use_deformable: bool = False):
         super().__init__()
         if norm not in ("GN", "BN", "SyncBN", "", "none", None):
             raise ValueError(f"Unsupported head norm: {norm}")
@@ -64,7 +66,10 @@ class Tower(nn.Module):
         self.has_norm = norm not in ("", "none", None)
         self.act = F.relu if use_relu else mish
         for i in range(num_convs):
-            self.add_module(f"conv{i}", Conv2d(channels, channels, 3, padding=1))
+            if use_deformable and i == num_convs - 1:
+                self.add_module(f"conv{i}", deform_conv.DeformConv2d(channels, channels))
+            else:
+                self.add_module(f"conv{i}", Conv2d(channels, channels, 3, padding=1))
             if norm == "GN":
                 self.add_module(f"norm{i}", GroupNorm(channels // 8, channels, eps=1e-5))
             elif self.per_level:
@@ -98,9 +103,6 @@ class DAFNeHead(nn.Module):
         super().__init__()
         if corner_prediction not in CORNER_PREDICTIONS:
             raise ValueError(f"Unknown MODEL.DAFNE.CORNER_PREDICTION {corner_prediction!r}")
-        if use_deformable:
-            raise NotImplementedError("MODEL.DAFNE.USE_DEFORMABLE (deformable head towers) is "
-                                      "not ported yet")
         c = in_channels
         self.corner_prediction = corner_prediction
         self.merge = merge_corner_center_pred
@@ -109,10 +111,10 @@ class DAFNeHead(nn.Module):
         self.ctr_on_reg = ctr_on_reg
         self.corner_tower_on_center_tower = corner_tower_on_center_tower
 
-        def tower(n):
-            return Tower(n, c, norm, num_levels, use_relu)
+        def tower(n, deformable=use_deformable):
+            return Tower(n, c, norm, num_levels, use_relu, deformable)
 
-        self.share_tower = tower(num_share_convs)
+        self.share_tower = tower(num_share_convs, False)
         self.cls_tower = tower(num_cls_convs)
         self.corners_tower = tower(num_box_convs)
         if corner_prediction == "center-to-corner" and not merge_corner_center_pred:

@@ -37,13 +37,23 @@ class FrozenBN(nn.Module):
 
     mul = weight / sqrt(var + eps) and add = bias - mean * mul are formed
     in float32 and cast to the compute dtype, as ``resnet.py:56-58`` of the
-    JAX package does."""
+    JAX package does.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    In JAX all four are parameters, and the optimizer's labels freeze the
+    ones under a module named ``*norm*``.  The ResNet trunks name theirs so
+    (here buffers); DLA, VoVNet and MobileNetV2 name theirs ``*_bn``, so JAX
+    trains their ``weight`` and ``bias`` (``affine_params``: parameters
+    here) and keeps only the running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-5, affine_params: bool = False):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        if affine_params:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_buffer("weight", torch.ones(features))
+            self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 

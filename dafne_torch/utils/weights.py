@@ -2,7 +2,9 @@
 
 The port's module names follow the flax tree, so the mapping is by name:
 conv ``kernel`` [kh, kw, in, out] (HWIO) becomes ``weight`` [out, in, kh, kw]
-(OIHW), a norm's ``scale`` (GroupNorm, the head's BatchNorm) becomes
+(OIHW) (a depthwise [3, 3, 1, C] becomes [C, 1, 3, 3], a deformable conv's
+1x1 over 9C stacked taps [1, 1, 9C, F] becomes [F, 9C, 1, 1]), a Dense
+``kernel`` [in, out] becomes a Linear ``weight`` [out, in], a norm's ``scale`` (GroupNorm, the head's BatchNorm) becomes
 ``weight``, and the FrozenBN leaves and ``head/scales`` keep their names.
 The BN towers' running statistics live in flax's ``batch_stats``
 collection (``mean``, ``var``); they become ``running_mean`` and
@@ -43,9 +45,11 @@ def params_from_flax(params: Dict[str, Any],
         a = np.asarray(value, dtype=np.float32)
         module, _, leaf = path.rpartition(".")
         if leaf == "kernel":
-            if a.ndim != 4:
-                raise ValueError(f"{path}: expected an HWIO conv kernel, got shape {a.shape}")
-            out[f"{module}.weight"] = torch.from_numpy(a.transpose(3, 2, 0, 1).copy())
+            if a.ndim not in (2, 4):
+                raise ValueError(f"{path}: expected an HWIO conv or a Dense kernel, got shape "
+                                 f"{a.shape}")
+            order = (3, 2, 0, 1) if a.ndim == 4 else (1, 0)
+            out[f"{module}.weight"] = torch.from_numpy(a.transpose(order).copy())
         elif leaf == "scale":
             out[f"{module}.weight"] = torch.from_numpy(a.copy())
         else:

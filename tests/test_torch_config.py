@@ -111,7 +111,8 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.data.datasets.icdar15", "dafne_torch.utils.weight_import",
               "dafne_torch.evaluation.result_merge", "dafne_torch.data.image_warp",
               "dafne_torch.parallel", "dafne_torch.parallel.distributed",
-              "dafne_torch.parallel.mesh"):
+              "dafne_torch.parallel.mesh", "dafne_torch.layers.deform_conv",
+              "dafne_torch.ops.kernels.deform_conv", "dafne_torch.models.backbones"):
         assert m in modules
 
 

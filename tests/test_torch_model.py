@@ -108,13 +108,17 @@ def test_params_from_flax_fills_every_key():
 
 
 def test_unported_options_raise():
-    """What is still unported raises: deformable towers and the other
-    backbones (the head options are ported, tests/test_torch_head_options.py)."""
-    _, tcfg = narrow_cfgs(["MODEL.DAFNE.USE_DEFORMABLE", "True"])
-    with pytest.raises(NotImplementedError, match="USE_DEFORMABLE"):
+    """What is still refused raises: MODEL.RESNETS.NORM other than FrozenBN
+    (JAX reads no such key), and an unknown MODEL.BACKBONE.NAME raises
+    ValueError as in JAX.  Deformable towers and every other backbone are
+    ported (tests/test_torch_backbones.py, test_torch_deform_conv.py)."""
+    _, tcfg = narrow_cfgs(["MODEL.RESNETS.NORM", "BN"])
+    with pytest.raises(NotImplementedError, match="RESNETS.NORM"):
         build_model(tcfg, device="cpu")
-    _, tcfg = narrow_cfgs(["MODEL.BACKBONE.NAME", "build_dafne_dla_fpn_backbone"])
-    with pytest.raises(NotImplementedError, match="BACKBONE.NAME"):
+    jcfg, tcfg = narrow_cfgs(["MODEL.BACKBONE.NAME", "build_unknown_backbone"])
+    with pytest.raises(ValueError, match="BACKBONE.NAME"):
+        jax_build_model(jcfg)
+    with pytest.raises(ValueError, match="BACKBONE.NAME"):
         build_model(tcfg, device="cpu")
 
 

@@ -18,10 +18,12 @@ def build_defaults() -> CfgNode:
     _C = CfgNode()
     _C.OUTPUT_DIR = "./output"
     _C.SEED = -1
+    _C.EXPERIMENT_NAME = "dafne"  # the run report's "experiment" (utils/notify.py)
 
     _C.DEBUG = CfgNode()
     _C.DEBUG.OVERFIT_NUM_IMAGES = -1  # truncate datasets to N images (<0: off)
     _C.DEBUG.NAN_CHECK = True  # raise when a written loss is not finite
+    _C.DEBUG.PROFILE_ITERS = []  # [start, stop]: a torch.profiler trace of those train steps
 
     _C.MODEL = CfgNode()
     _C.MODEL.META_ARCHITECTURE = "OneStageDetector"

@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from dafne_torch.data import transforms as T
+from dafne_torch.data.transforms import eval_preprocess_meta  # noqa: F401  (JAX keeps it here)
 from dafne_torch.data.image_io import read_image
 from dafne_torch.ops.device_warp import WARP_KEYS, draw_color_params, separable_warp_params
 

@@ -208,12 +208,35 @@ def train_geometric_augs_separable(cfg) -> bool:
     return all(a % 90.0 == 0.0 for a in angles)
 
 
+def eval_preprocess_meta(cfg) -> dict:
+    """The eval-time preprocessing recipe as a plain dict (JAX
+    ``data/mapper.py::eval_preprocess_meta``, also importable from the
+    port's ``data/mapper.py``): the resize ``eval_resize`` applies and the
+    channel order clients must send.  One source for an exported
+    artifact's metadata (``tools/export_model.py``), serving and the eval
+    mapper, so that no two front ends can diverge."""
+    return {
+        "resize_type": cfg.INPUT.RESIZE_TYPE,
+        "min_size_test": cfg.INPUT.MIN_SIZE_TEST,
+        "max_size_test": cfg.INPUT.MAX_SIZE_TEST,
+        "resize_width_test": cfg.INPUT.get("RESIZE_WIDTH_TEST", 0),
+        "resize_height_test": cfg.INPUT.get("RESIZE_HEIGHT_TEST", 0),
+        "input_format": cfg.INPUT.FORMAT,
+    }
+
+
+def eval_resize(meta: dict, w: int, h: int) -> AffineAug:
+    """The test-time resize of an ``eval_preprocess_meta`` recipe (JAX
+    ``tools/serve.py::_test_aug``): shortest edge to min_size_test capped
+    at max_size_test, or resize_{width,height}_test for "both"."""
+    if meta.get("resize_type", "shortest-edge") == "shortest-edge":
+        return shortest_edge_resize(w, h, meta["min_size_test"], meta["max_size_test"])
+    return resize(w, h, meta["resize_width_test"], meta["resize_height_test"])
+
+
 def build_test_augmentation(cfg, w: int, h: int) -> AffineAug:
-    """The test-time resize: shortest edge to INPUT.MIN_SIZE_TEST capped at
-    MAX_SIZE_TEST, or INPUT.RESIZE_{WIDTH,HEIGHT}_TEST for "both"."""
-    if cfg.INPUT.RESIZE_TYPE == "shortest-edge":
-        return shortest_edge_resize(w, h, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
-    return resize(w, h, cfg.INPUT.RESIZE_WIDTH_TEST, cfg.INPUT.RESIZE_HEIGHT_TEST)
+    """The test-time resize of `cfg`: ``eval_resize`` of its recipe."""
+    return eval_resize(eval_preprocess_meta(cfg), w, h)
 
 
 # detectron2 RandomLighting PCA basis (AlexNet-style ImageNet eigen

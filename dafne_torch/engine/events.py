@@ -1,7 +1,9 @@
-"""Metric writers: terminal and JSONL.
+"""Metric writers: terminal, JSONL and TensorBoard.
 
 Counterpart of ``dafne_tpu/engine/events.py`` (``TerminalWriter``,
-``JSONWriter``, ``build_writers``); the TensorBoard writer is not ported.
+``JSONWriter``, ``TensorBoardWriter``, ``build_writers``).  The TensorBoard
+writer imports ``tensorboard`` when it is built, and writes nothing when
+the package is not installed, as JAX's writes nothing without TensorFlow.
 ``mark`` and ``elapsed_ms`` time a span on a device's stream.  With
 several processes ``do_train`` builds the writers on process 0 only (JAX
 ``train_loop.py:378-381``); the metrics it writes are the global ones.
@@ -13,6 +15,7 @@ import datetime
 import json
 import logging
 import os
+import socket
 import time
 from collections import deque
 from typing import Dict
@@ -88,5 +91,47 @@ class JSONWriter(EventWriter):
         self.f.close()
 
 
+class TensorBoardWriter(EventWriter):
+    """Each numeric metric as a scalar under its own tag (``simple_value``,
+    as ``SummaryWriter.add_scalar`` writes it), one event per write, in an
+    event file under `log_dir` (OUTPUT_DIR/tb); silent without the
+    ``tensorboard`` package.
+
+    The file is written with tensorboard's own event protos and record
+    framing, not through ``torch.utils.tensorboard``, which imports
+    TensorFlow wherever TensorFlow is installed."""
+
+    def __init__(self, log_dir: str):
+        try:
+            from tensorboard.compat.proto.event_pb2 import Event
+            from tensorboard.compat.proto.summary_pb2 import Summary
+            from tensorboard.summary.writer.record_writer import RecordWriter
+        except ImportError:
+            self.f = None
+            return
+        self.Event, self.Summary = Event, Summary
+        os.makedirs(log_dir, exist_ok=True)
+        name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}.{os.getpid()}.0"
+        self.f = open(os.path.join(log_dir, name), "wb")
+        self.records = RecordWriter(self.f)
+        self._event(file_version="brain.Event:2")
+
+    def _event(self, **fields) -> None:
+        self.records.write(self.Event(wall_time=time.time(), **fields).SerializeToString())
+        self.f.flush()
+
+    def write(self, step, metrics):
+        if self.f is None:
+            return
+        values = [self.Summary.Value(tag=k, simple_value=float(v))
+                  for k, v in metrics.items() if isinstance(v, (int, float))]
+        self._event(step=int(step), summary=self.Summary(value=values))
+
+    def close(self):
+        if self.f is not None:
+            self.f.close()
+
+
 def build_writers(output_dir: str, max_iter: int):
-    return [TerminalWriter(max_iter), JSONWriter(os.path.join(output_dir, "metrics.json"))]
+    return [TerminalWriter(max_iter), JSONWriter(os.path.join(output_dir, "metrics.json")),
+            TensorBoardWriter(os.path.join(output_dir, "tb"))]

@@ -3,18 +3,23 @@
 In the shape of ``tools/serve.py::DetectorService`` (``preprocess``
 :203-223, ``detect``) without HTTP: each request image is converted to
 uint8 (float pixels clipped first), resized with the recipe's eval resize
-(``data/transforms.py::build_test_augmentation``, rendered by
-``AffineAug.apply_image``) and placed top-left on the static canvas,
-cropped there if it is larger, exactly as the eval mapper places it; the
-requests are batched and run through the eval step, and each image's
-valid detections come back, rescaled by scale_xy = (w / rw, h / rh) to
-the original image's coordinates, as ``{corners, hbox, score, class}``
-dicts, highest score first.
+(``data/transforms.py::eval_resize`` of ``eval_preprocess_meta``,
+rendered by ``AffineAug.apply_image``) and placed top-left on the static
+canvas, cropped there if it is larger, exactly as the eval mapper places
+it; the requests are batched and run through an eval step, and each
+image's valid detections come back, rescaled by scale_xy = (w / rw, h /
+rh) to the original image's coordinates, as ``{corners, hbox, score,
+class}`` dicts, highest score first.
+
+``FrontEnd`` needs no config: the recipe dict, the canvas and any step
+``(images [B, H, W, 3] uint8, scale_xy [B, 2] f32) -> detections`` (an
+exported program's too).  ``Predictor`` is the front end of a model and
+its config, over ``make_eval_step``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,16 +29,18 @@ from dafne_torch.data.mapper import pad_target_hw
 from dafne_torch.engine.inference import make_eval_step
 
 
-class Predictor:
-    """Batches H x W x 3 request images (uint8, or float in 0-255) onto the
-    config's test canvas (`pad_target_hw`)."""
+class FrontEnd:
+    """Batches H x W x 3 request images (uint8, or float in 0-255) onto a
+    `canvas_hw` canvas on `device`, resized as the recipe `meta`
+    (``eval_preprocess_meta``) says, and runs them through `step`."""
 
-    def __init__(self, model, cfg, batch: int):
-        self.cfg = cfg
+    def __init__(self, step: Callable, meta: Dict, canvas_hw: Tuple[int, int], batch: int,
+                 device):
+        self.step = step
+        self.meta = meta
+        self.canvas_hw = tuple(canvas_hw)
         self.batch = int(batch)
-        self.canvas_hw = pad_target_hw(cfg, train=False)
-        self.device = next(model.parameters()).device
-        self.step = make_eval_step(model, cfg, self.canvas_hw)
+        self.device = torch.device(device)
 
     def check(self, images: Sequence[np.ndarray]) -> None:
         """Raise ValueError unless every request is a non-empty H x W x 3
@@ -51,7 +58,7 @@ class Predictor:
         if img.dtype != np.uint8:
             img = np.clip(img, 0, 255).astype(np.uint8)
         h, w = img.shape[:2]
-        resized = T.build_test_augmentation(self.cfg, w, h).apply_image(img)
+        resized = T.eval_resize(self.meta, w, h).apply_image(img)
         rh, rw = resized.shape[:2]
         return resized, np.asarray([w / rw, h / rh], np.float32)
 
@@ -94,3 +101,14 @@ class Predictor:
                 dets.sort(key=lambda d: -d["score"])
                 results.append(dets)
         return results
+
+
+class Predictor(FrontEnd):
+    """The front end of `model` (on its device) and `cfg`: the config's test
+    canvas (`pad_target_hw`) and its eval step."""
+
+    def __init__(self, model, cfg, batch: int):
+        canvas_hw = pad_target_hw(cfg, train=False)
+        super().__init__(make_eval_step(model, cfg, canvas_hw), T.eval_preprocess_meta(cfg),
+                         canvas_hw, batch, next(model.parameters()).device)
+        self.cfg = cfg

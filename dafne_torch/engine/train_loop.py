@@ -11,8 +11,15 @@ process:
   use, all sharing the model, optimizer and scheduler), rendered on the
   device when ``resolve_train_device_aug`` says so (:331-372), SOLVER.MAX_ITER steps,
   the metric writers every 20 iterations (and at the first), the
-  ``DEBUG.NAN_CHECK`` raise, a checkpoint every SOLVER.CHECKPOINT_PERIOD
-  iterations and at the end, and ``do_test`` every TEST.EVAL_PERIOD.
+  ``DEBUG.NAN_CHECK`` raise, an asynchronous checkpoint
+  (``Checkpointer.save_async``, :494,501) every SOLVER.CHECKPOINT_PERIOD
+  iterations and at the end, and ``do_test`` every TEST.EVAL_PERIOD, after
+  the queued saves are written.  ``DEBUG.PROFILE_ITERS`` [start, stop]
+  (:395-401,463-469,499-501) runs ``torch.profiler`` over the CPU and the
+  card from the top of iteration `start` to the top of `stop` (or the
+  loop's end) and writes a Chrome trace to
+  OUTPUT_DIR/profile/trace_<start>-<stop>.json; a resume past `start`
+  traces nothing.
 - ``do_test`` (:108): every DATASETS.TEST dataset through the eval loader
   and ``make_eval_step`` on the tight eval canvas, one batch in flight
   while the host fetches the previous one, into the VOC-07 evaluator;
@@ -27,11 +34,11 @@ and TPU.EVAL_BATCH are global batches: each process maps, trains on and
 evaluates its rows of them.  The parameters, and TPU.TRAIN_DEVICE_AUG's
 decision (its "auto" reads the host's cores), are broadcast from process 0
 at the start; process 0 alone writes the metrics, the config, the
-checkpoints and the evaluation files, and the decoded detections of every
-process's rows are gathered to it through the host.  The others return
-``{}`` per dataset from ``do_test``, as JAX's do.
+checkpoints, the profiler trace and the evaluation files, and the decoded
+detections of every process's rows are gathered to it through the host.
+The others return ``{}`` per dataset from ``do_test``, as JAX's do.
 
-The profiler window and sample renderings are not ported.
+Sample renderings are not ported.
 """
 
 from __future__ import annotations
@@ -241,6 +248,56 @@ def save_test_results(output_dir, dataset_name, step, res):
             w.writerow([step, dataset_name, k, f"{v:.4f}"])
 
 
+class ProfileWindow:
+    """``DEBUG.PROFILE_ITERS`` [start, stop] of one process: ``at(it)`` at
+    the top of each iteration starts ``torch.profiler`` over the CPU (and
+    the card, on one) at `start` and stops it at `stop`, writing the Chrome
+    trace; ``close(end)`` stops a window that runs past the loop's end;
+    ``abort()`` stops it without a trace.  Only a window that was started
+    is ever stopped, and only when `trace` (process 0) is one started."""
+
+    def __init__(self, cfg, device: torch.device, trace: bool = True):
+        window = list(cfg.DEBUG.PROFILE_ITERS or [])
+        if window and len(window) != 2:
+            raise ValueError(f"DEBUG.PROFILE_ITERS must be [start, stop], got {window}")
+        self.window = window if trace else []
+        self.dir = os.path.join(cfg.OUTPUT_DIR, "profile")
+        self.device = device
+        self.prof = None
+        self.path: Optional[str] = None
+
+    def at(self, it: int) -> None:
+        if not self.window:
+            return
+        if it == self.window[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=activities)
+            self.prof.start()
+        if self.prof is not None and it == self.window[1]:
+            self.close(it)
+
+    def close(self, end: int) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self.prof = self.prof, None
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, f"trace_{self.window[0]}-{end}.json")
+        prof.export_chrome_trace(self.path)
+        logger.info(f"profiler trace of iterations {self.window[0]}-{end} written to {self.path}")
+
+    def abort(self) -> None:
+        if self.prof is not None:
+            prof, self.prof = self.prof, None
+            prof.stop()
+
+
 def do_train(cfg, model, records: List[dict], resume: bool = False,
              stats: Optional[dict] = None) -> Dict[str, float]:
     """Train `model` (on its device) over `records` (dicts with "image" and
@@ -251,7 +308,8 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
     buckets), and per canvas the train steps built, the milliseconds of
     each step run on it, in order, and each step's total loss ("steps":
     {(h, w): {"builds", "ms", "loss"}}; CUDA events around the step on the
-    card, the host clock off it).  With several processes
+    card, the host clock off it), and per save the loop's and the writer's
+    ms ("checkpoints": {"blocking_ms", "worker_ms"}).  With several processes
     SOLVER.IMS_PER_BATCH is the global batch (the loader raises unless it
     splits evenly over them); the returned metrics and the losses in `stats` are global."""
     world, main = dist.process_count(), dist.is_main_process()
@@ -292,24 +350,24 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
 
     per_canvas: Dict[Tuple[int, int], dict] = {}
     writers = build_writers(cfg.OUTPUT_DIR, max_iter) if main else []
+    window = ProfileWindow(cfg, device, trace=main)
     model.train()
     batches = iter(loader)
     host: Dict[str, float] = {}
     t_data = 0.0
     last_write = start_iter - 1
     ckpt_period, eval_period = cfg.SOLVER.CHECKPOINT_PERIOD, cfg.TEST.EVAL_PERIOD
-    save_s = 0.0
+    blocking_s: List[float] = []  # the loop's seconds per save: snapshot and queue
 
     def save(at):
-        nonlocal save_s
         t0 = time.perf_counter()
-        checkpointer.save(at, model, optimizer, scheduler)
-        dt = time.perf_counter() - t0
-        save_s += dt
-        logger.info(f"checkpoint {at} saved in {dt:.3f} s")
+        checkpointer.save_async(at, model, optimizer, scheduler)
+        blocking_s.append(time.perf_counter() - t0)
+        logger.info(f"checkpoint {at} queued in {blocking_s[-1]:.3f} s")
 
     try:
         for it in range(start_iter, max_iter):
+            window.at(it)
             t0 = time.perf_counter()
             host_batch = next(batches)
             batch = to_device(host_batch, device)
@@ -334,8 +392,18 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
             if ckpt_period and (it + 1) % ckpt_period == 0:
                 save(it + 1)
             if eval_period and (it + 1) % eval_period == 0 and (it + 1) != max_iter:
+                checkpointer.wait()
                 do_test(cfg, model, cfg.OUTPUT_DIR, step=it + 1)
+        window.close(max_iter)
         save(max_iter)
+        checkpointer.wait()
+    except BaseException:
+        window.abort()
+        try:  # the saves queued before the failure are written; the failure propagates
+            checkpointer.wait()
+        except Exception:
+            logger.exception("a checkpoint queued before the failure was not written")
+        raise
     finally:
         batches.close()
         for w in writers:
@@ -348,4 +416,7 @@ def do_train(cfg, model, records: List[dict], resume: bool = False,
                                "ms": [elapsed_ms(a, b) for a, b in v["marks"]],
                                "loss": [float(x) for x in v["loss"]]}
                           for hw, v in per_canvas.items()}
-    return {**host, "checkpoint_s": save_s}
+        stats["checkpoints"] = {"blocking_ms": [x * 1e3 for x in blocking_s],
+                                "worker_ms": [x * 1e3 for x in checkpointer.worker_s]}
+    return {**host, "checkpoint_s": sum(blocking_s),
+            "checkpoint_worker_s": sum(checkpointer.worker_s)}

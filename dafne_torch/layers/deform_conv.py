@@ -8,12 +8,15 @@ each location, stacked tap-major into columns [N, 9C, H, W]: tap k
 ``deform_im2col``, runs
 
   - on the card the hand-written kernel of ``dafne_torch/csrc/deform_conv.cu``
-    (``ops/kernels/deform_conv.py``: forward and backward, through a
-    ``torch.autograd.Function``), and
-  - on the CPU its plain version ``deform_im2col_plain``: JAX's gather
-    formulation, op for op.  On the card it is the kernel's reference.
+    (``ops/kernels/deform_conv.py``: forward and backward), and
+  - on the CPU its plain version ``deform_im2col_plain``
+    (``ops/kernels/deform_conv.py``): JAX's gather formulation, op for op.
+    On the card it is the kernel's reference.
 
-A CUDA tensor launches the kernel or raises; there is no fallback.
+Both sit behind the op ``dafne::deform_im2col`` (``ops/kernels/library.py``),
+whose device key picks one and whose autograd runs
+``dafne::deform_im2col_backward``.  A CUDA tensor launches the kernel or
+raises; there is no fallback.
 
 Semantics, as JAX's ``bilinear_sample``: positions and the fractional
 weights wx, wy are float32 whatever the feature dtype; each of the four
@@ -35,79 +38,18 @@ import torch
 from torch import nn
 
 from dafne_torch.models.layers import Conv2d
-from dafne_torch.ops.kernels import deform_conv as K
-
-#: the 9 taps' base offsets (dy, dx), torchvision's order
-TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-
-
-def bilinear_sample(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
-    """Sample x [N, C, H, W] at float positions px, py [N, H', W'] (pixel
-    index space, 0..W-1) -> [N, C, H', W'], as JAX's ``bilinear_sample``
-    (which is NHWC): a corner outside the map gathers index 0 and is
-    multiplied by 0."""
-    n, c, h, w = x.shape
-    px = px.float()
-    py = py.float()
-    x0f = torch.floor(px)
-    y0f = torch.floor(py)
-    wx = px - x0f
-    wy = py - y0f
-    x0 = x0f.long()
-    y0 = y0f.long()
-    x1 = x0 + 1
-    y1 = y0 + 1
-    flat = x.reshape(n, c, h * w)
-
-    def gather(yi, xi):
-        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        idx = torch.where(inb, yi * w + xi, 0).reshape(n, 1, -1).expand(n, c, -1)
-        out = torch.gather(flat, 2, idx).reshape((n, c) + tuple(px.shape[1:]))
-        return out * inb[:, None].to(out.dtype)
-
-    v00 = gather(y0, x0)
-    v01 = gather(y0, x1)
-    v10 = gather(y1, x0)
-    v11 = gather(y1, x1)
-    wx = wx[:, None].to(x.dtype)
-    wy = wy[:, None].to(x.dtype)
-    return (
-        v00 * (1 - wx) * (1 - wy)
-        + v01 * wx * (1 - wy)
-        + v10 * (1 - wx) * wy
-        + v11 * wx * wy
-    )
-
-
-def deform_im2col_plain(x: torch.Tensor, offsets: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Columns [N, 9C, H, W] (tap-major) of x [N, C, H, W] sampled at the
-    3x3 grid moved by offsets [N, 18, H, W] ((dy, dx) per tap, read as
-    float32), each tap times mask [N, 9, H, W] (x's dtype) when given."""
-    n, c, h, w = x.shape
-    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=x.device),
-                            torch.arange(w, dtype=torch.float32, device=x.device),
-                            indexing="ij")
-    taps = []
-    for k, (dy, dx) in enumerate(TAPS):
-        py = gy + dy + offsets[:, 2 * k].float()
-        px = gx + dx + offsets[:, 2 * k + 1].float()
-        t = bilinear_sample(x, px, py)
-        if mask is not None:
-            t = t * mask[:, k:k + 1]
-        taps.append(t)
-    return torch.cat(taps, dim=1)
-
+from dafne_torch.ops.kernels.deform_conv import (  # noqa: F401  (the plain version's home)
+    TAPS,
+    bilinear_sample,
+    deform_im2col_plain,
+)
 
 def deform_im2col(x: torch.Tensor, offsets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The columns of ``deform_im2col_plain``: the CUDA kernel (with its
-    backward) for CUDA tensors, the plain version for CPU tensors."""
-    if x.is_cuda:
-        return K.deform_im2col_cuda(x, offsets.float(), mask)
-    if x.device.type == "cpu":
-        return deform_im2col_plain(x, offsets, mask)
-    raise ValueError(f"deform_im2col: unsupported device {x.device}")
+    """The columns of ``deform_im2col_plain`` through ``dafne::deform_im2col``:
+    the CUDA kernel (with its backward) for CUDA tensors, the plain version
+    (with its autograd's gradients) for CPU tensors."""
+    return torch.ops.dafne.deform_im2col(x, offsets, mask)
 
 
 class DeformConv2d(nn.Module):

@@ -1,12 +1,13 @@
-"""The deformable sampling kernel (``deform_im2col``) on the card.
+"""The deformable sampling kernel (``deform_im2col``) and its plain version.
 
 The CUDA kernels of ``dafne_torch/csrc/deform_conv.cu`` behind wrappers
 that check their inputs, launch on the current stream, raise on a launch
 error and count their launches (``deform_im2col_forward_cuda.launches``,
-``deform_im2col_backward_cuda.launches``), and the
-``torch.autograd.Function`` that joins the two (``deform_im2col_cuda``).
-The plain PyTorch version and the dispatcher that picks between them by
-device are in ``dafne_torch/layers/deform_conv.py``.
+``deform_im2col_backward_cuda.launches``), and the plain PyTorch version
+``deform_im2col_plain`` (JAX's gather formulation, op for op; semantics
+in ``dafne_torch/layers/deform_conv.py``).  ``library.py`` joins them into
+the ops ``dafne::deform_im2col`` and ``dafne::deform_im2col_backward``,
+the forward differentiable through the backward.
 
 No Pallas kernel is replaced: JAX samples in XLA
 (``dafne_tpu/layers/deform_conv.py:26``).  The forward is bit-equal to the
@@ -133,31 +134,66 @@ deform_im2col_forward_cuda.launches = 0
 deform_im2col_backward_cuda.launches = 0
 
 
-class DeformIm2col(torch.autograd.Function):
-    """The kernel's forward and backward as one differentiable op.  Saves
-    its inputs, not the columns."""
-
-    @staticmethod
-    def forward(ctx, x, offsets, mask):
-        x = x.contiguous()
-        offsets = offsets.contiguous()
-        mask = None if mask is None else mask.contiguous()
-        ctx.save_for_backward(x, offsets, mask)
-        return deform_im2col_forward_cuda(x, offsets, mask)
-
-    @staticmethod
-    def backward(ctx, grad_cols):
-        x, offsets, mask = ctx.saved_tensors
-        gx, goff, gmask = deform_im2col_backward_cuda(x, offsets, mask, grad_cols.contiguous())
-        need = ctx.needs_input_grad
-        return (gx if need[0] else None, goff if need[1] else None,
-                gmask if mask is not None and need[2] else None)
+#: the 9 taps' base offsets (dy, dx), torchvision's order
+TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 
-def deform_im2col_cuda(x: torch.Tensor, offsets: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The columns on the card, differentiable in x, offsets and mask."""
-    return DeformIm2col.apply(x, offsets, mask)
+def bilinear_sample(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """Sample x [N, C, H, W] at float positions px, py [N, H', W'] (pixel
+    index space, 0..W-1) -> [N, C, H', W'], as JAX's ``bilinear_sample``
+    (which is NHWC): a corner outside the map gathers index 0 and is
+    multiplied by 0."""
+    n, c, h, w = x.shape
+    px = px.float()
+    py = py.float()
+    x0f = torch.floor(px)
+    y0f = torch.floor(py)
+    wx = px - x0f
+    wy = py - y0f
+    x0 = x0f.long()
+    y0 = y0f.long()
+    x1 = x0 + 1
+    y1 = y0 + 1
+    flat = x.reshape(n, c, h * w)
+
+    def gather(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = torch.where(inb, yi * w + xi, 0).reshape(n, 1, -1).expand(n, c, -1)
+        out = torch.gather(flat, 2, idx).reshape((n, c) + tuple(px.shape[1:]))
+        return out * inb[:, None].to(out.dtype)
+
+    v00 = gather(y0, x0)
+    v01 = gather(y0, x1)
+    v10 = gather(y1, x0)
+    v11 = gather(y1, x1)
+    wx = wx[:, None].to(x.dtype)
+    wy = wy[:, None].to(x.dtype)
+    return (
+        v00 * (1 - wx) * (1 - wy)
+        + v01 * wx * (1 - wy)
+        + v10 * (1 - wx) * wy
+        + v11 * wx * wy
+    )
+
+
+def deform_im2col_plain(x: torch.Tensor, offsets: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Columns [N, 9C, H, W] (tap-major) of x [N, C, H, W] sampled at the
+    3x3 grid moved by offsets [N, 18, H, W] ((dy, dx) per tap, read as
+    float32), each tap times mask [N, 9, H, W] (x's dtype) when given."""
+    n, c, h, w = x.shape
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=x.device),
+                            torch.arange(w, dtype=torch.float32, device=x.device),
+                            indexing="ij")
+    taps = []
+    for k, (dy, dx) in enumerate(TAPS):
+        py = gy + dy + offsets[:, 2 * k].float()
+        px = gx + dx + offsets[:, 2 * k + 1].float()
+        t = bilinear_sample(x, px, py)
+        if mask is not None:
+            t = t * mask[:, k:k + 1]
+        taps.append(t)
+    return torch.cat(taps, dim=1)
 
 
 def reset_launch_counts() -> None:

@@ -11,9 +11,11 @@ walks those.  Each function has
     error and counts its launches (``<wrapper>.launches``);
   - a plain PyTorch version of the same function, used for CPU tensors and
     as the kernel's reference on the card;
-  - a dispatcher that launches the kernel for CUDA tensors and takes the
-    plain version only for CPU tensors.  There is no fallback: a CUDA
-    tensor launches the kernel or raises.
+  - a public function (``suppression_bits``, ``suppression_bits_2d``,
+    ``greedy_keep_bits``) that calls its ``torch.ops.dafne`` op
+    (``library.py``), whose device key picks the kernel for CUDA tensors
+    and the plain version for CPU tensors.  There is no fallback: a CUDA
+    tensor launches the kernel or raises, and no other device is taken.
 """
 
 from __future__ import annotations
@@ -228,13 +230,10 @@ suppression_bits_cuda.launches = 0
 
 
 def suppression_bits(corners, classes, iou_threshold: float, eps: float = 1e-6):
-    """S of class-major candidates as bit rows [B, N, N / 32] int32: K1 for
-    CUDA tensors, the packed plain S for CPU tensors."""
-    if corners.is_cuda:
-        return suppression_bits_cuda(corners, classes, iou_threshold, eps)
-    if corners.device.type == "cpu":
-        return pack_suppression_bits(suppression_matrix_plain(corners, classes, iou_threshold, eps))
-    raise ValueError(f"suppression_bits: unsupported device {corners.device}")
+    """S of class-major candidates as bit rows [B, N, N / 32] int32
+    (``dafne::suppression_bits``): K1 for CUDA tensors, the packed plain S
+    for CPU tensors."""
+    return torch.ops.dafne.suppression_bits(corners, classes, float(iou_threshold), float(eps))
 
 
 def suppression_bits_2d_cuda(corners, classes, iou_threshold: float, eps: float = 1e-6):
@@ -252,27 +251,21 @@ suppression_bits_2d_cuda.launches = 0
 
 
 def suppression_bits_2d(corners, classes, iou_threshold: float, eps: float = 1e-6):
-    """S of candidates in any score order as bit rows [B, N, N / 32] int32:
-    K2 for CUDA tensors, the packed plain S for CPU tensors."""
-    if corners.is_cuda:
-        return suppression_bits_2d_cuda(corners, classes, iou_threshold, eps)
-    if corners.device.type == "cpu":
-        return pack_suppression_bits(suppression_matrix_plain(corners, classes, iou_threshold, eps))
-    raise ValueError(f"suppression_bits_2d: unsupported device {corners.device}")
+    """S of candidates in any score order as bit rows [B, N, N / 32] int32
+    (``dafne::suppression_bits_2d``): K2 for CUDA tensors, the packed plain
+    S for CPU tensors."""
+    return torch.ops.dafne.suppression_bits_2d(corners, classes, float(iou_threshold), float(eps))
 
 
 def suppression_matrix(corners, classes, iou_threshold: float, eps: float = 1e-6,
                        class_major: bool = False):
-    """S [B, N, N] int8 (see suppression_matrix_plain).  For CUDA tensors a
-    kernel's bit rows, unpacked: the strip kernel (K1) when `class_major`,
-    else the 2-D tiled kernel (K2); for CPU tensors the plain version.  NMS
-    takes the bit rows themselves (suppression_bits, suppression_bits_2d)."""
-    if corners.is_cuda:
-        kernel = suppression_bits_cuda if class_major else suppression_bits_2d_cuda
-        return unpack_suppression_bits(kernel(corners, classes, iou_threshold, eps))
-    if corners.device.type == "cpu":
-        return suppression_matrix_plain(corners, classes, iou_threshold, eps)
-    raise ValueError(f"suppression_matrix: unsupported device {corners.device}")
+    """S [B, N, N] int8 (see suppression_matrix_plain): the bit rows of the
+    strip kernel's op (K1) when `class_major`, else of the 2-D tiled
+    kernel's (K2), unpacked.  NMS takes the bit rows themselves
+    (suppression_bits, suppression_bits_2d)."""
+    bits = (suppression_bits if class_major else suppression_bits_2d)(corners, classes,
+                                                                     iou_threshold, eps)
+    return unpack_suppression_bits(bits)
 
 
 # ----------------------------------------------------------------------------
@@ -323,13 +316,9 @@ greedy_keep_bits_cuda.launches = 0
 
 def greedy_keep_bits(bits: torch.Tensor, keep_init: torch.Tensor) -> torch.Tensor:
     """Exact greedy keep-set over the bit rows of S (only bits j > i are
-    read): the CUDA kernel for CUDA tensors, the plain walk over the
-    unpacked S for CPU tensors."""
-    if bits.is_cuda:
-        return greedy_keep_bits_cuda(bits, keep_init)
-    if bits.device.type == "cpu":
-        return greedy_keep_plain(unpack_suppression_bits(bits), keep_init)
-    raise ValueError(f"greedy_keep_bits: unsupported device {bits.device}")
+    read; ``dafne::greedy_keep_bits``): the CUDA kernel for CUDA tensors,
+    the plain walk over the unpacked S for CPU tensors."""
+    return torch.ops.dafne.greedy_keep_bits(bits, keep_init)
 
 
 def reset_launch_counts() -> None:

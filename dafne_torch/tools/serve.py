@@ -2,17 +2,21 @@
 
     python -m dafne_torch.tools.serve --config-file configs/dota-1.0/1024.yaml \
         OUTPUT_DIR runs/exp1 [--port 8321] [--cpu] [KEY VALUE ...]
+    python -m dafne_torch.tools.serve --artifact runs/exp1/export/model.pt2 [--cpu]
 
-Counterpart of ``tools/serve.py`` in live mode: the model built from the
+Counterpart of ``tools/serve.py``.  Live mode: the model built from the
 config, the newest checkpoint under OUTPUT_DIR restored through
 ``engine/checkpoint.py`` (else MODEL.WEIGHTS), one image per request at
-batch 1 on the card (the CPU with ``--cpu``), behind the standard
-library's threading HTTP server.  The model, its decode and the rotated
-NMS run on one long-lived thread: one request on the card at a time.  The server
+batch 1 on the card (the CPU with ``--cpu``).  Artifact mode: the program
+``tools/export_model.py`` wrote (``model.pt2`` and ``export_meta.json``),
+loaded with ``torch.export.load`` after the op library alone, with no
+model code and no config (KEY VALUE overrides are refused), on the device
+it was exported for (``--cpu`` for a CPU export).  Both serve behind the
+standard library's threading HTTP server, through the same front end
+(``engine/predictor.py``).  The model, its decode and the rotated NMS run
+on one long-lived thread: one request on the card at a time.  The server
 warms up once before it listens, so that cuDNN's search for the canvas's
-shapes is not billed to the first request.  Artifact mode (``--artifact``,
-a serialized StableHLO program from ``tools/export_model.py``) waits for
-the port of the export tool and raises.
+shapes is not billed to the first request.
 
 API, as ``tools/serve.py``:
   GET  /healthz -> 200 {"ok": true, "canvas": [H, W], "batch": 1, ...,
@@ -42,6 +46,7 @@ import argparse
 import io
 import json
 import logging
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -79,9 +84,10 @@ def decode_image_body(data: bytes, input_format: str = "BGR") -> np.ndarray:
 
 
 class DetectorService:
-    """One model on one thread: ``detect(img)`` runs one request at batch 1
-    through ``engine/predictor.py::Predictor`` on the service's model
-    thread, whichever thread asks."""
+    """One model on one thread: ``detect(img)`` runs one request through
+    ``engine/predictor.py``'s front end (a ``Predictor`` in live mode, a
+    ``FrontEnd`` over the loaded program in artifact mode) on the
+    service's model thread, whichever thread asks."""
 
     def __init__(self, predictor, meta: Dict):
         self.predictor = predictor
@@ -104,25 +110,54 @@ class DetectorService:
         """Live mode: the model of `cfg` on `device` (the card unless the
         caller asks for the CPU), the newest checkpoint under OUTPUT_DIR
         restored (else MODEL.WEIGHTS), served at batch 1."""
-        from dafne_torch.engine.checkpoint import Checkpointer
+        from dafne_torch.data.mapper import eval_preprocess_meta
+        from dafne_torch.engine.checkpoint import restore_for_inference
         from dafne_torch.engine.predictor import Predictor
-        from dafne_torch.models import build_model
-        from dafne_torch.parallel.distributed import local_device
 
-        dev = local_device(device)
-        model = build_model(cfg, device=dev,
-                            generator=torch.Generator().manual_seed(max(cfg.SEED, 0)))
-        step = Checkpointer(cfg.OUTPUT_DIR).resume_or_load(model, cfg, resume=True)
-        if not step and not cfg.MODEL.WEIGHTS:
-            logger.warning(f"no checkpoint under {cfg.OUTPUT_DIR} and MODEL.WEIGHTS is empty: "
-                           "serving untrained weights (/healthz reports ok=false)")
-        model.eval()
-        meta = {"resize_type": cfg.INPUT.RESIZE_TYPE, "min_size_test": cfg.INPUT.MIN_SIZE_TEST,
-                "max_size_test": cfg.INPUT.MAX_SIZE_TEST, "input_format": cfg.INPUT.FORMAT,
-                "checkpoint_step": int(step), "weights": cfg.MODEL.WEIGHTS}
-        service = cls(Predictor(model, cfg, batch=1), meta)
-        service.detect(np.zeros((*service.pad_hw, 3), np.uint8))  # the warm-up
-        return service
+        model, step = restore_for_inference(cfg, device)
+        meta = dict(eval_preprocess_meta(cfg), checkpoint_step=step, weights=cfg.MODEL.WEIGHTS)
+        return cls(Predictor(model, cfg, batch=1), meta).warm_up()
+
+    @classmethod
+    def from_artifact(cls, path: str, device: str = "cuda") -> "DetectorService":
+        """Artifact mode: the program ``tools/export_model.py`` wrote to
+        `path` (``model.pt2``, with ``export_meta.json`` beside it), served
+        through the same front end, with no model code: only the op library
+        is imported, to register the ``dafne::`` kernels before the load.
+        The program runs on the device it was exported for; `device` must
+        be that one.  A weights-as-args artifact is refused (SystemExit);
+        a batch over 1 is served with a warning."""
+        from dafne_torch.engine.predictor import FrontEnd
+        from dafne_torch.ops.kernels import library  # noqa: F401  (the dafne:: ops)
+
+        meta_path = os.path.join(os.path.dirname(os.path.abspath(path)), "export_meta.json")
+        if not (os.path.isfile(path) and os.path.isfile(meta_path)):
+            raise SystemExit(f"no artifact at {path} (model.pt2 with export_meta.json beside it)")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("weights_as_args"):
+            raise SystemExit("a weights-as-args artifact needs its weights as inputs; export "
+                             "without --weights-as-args for serving")
+        if torch.device(device).type != meta["device"]:
+            raise SystemExit(f"the artifact was exported for {meta['device']}, not {device}")
+        if int(meta["batch"]) > 1:
+            logger.warning(f"artifact batch is {meta['batch']}: every one-image request pays for "
+                           "the whole batch; export with --batch 1 for serving")
+        program = torch.export.load(path).module()
+
+        @torch.no_grad()
+        def step(images, scale_xy):
+            return program(images, scale_xy)
+
+        # the device the program's weights were loaded onto (cuda:0 for "cuda")
+        front = FrontEnd(step, meta, meta["pad_hw"], meta["batch"],
+                         next(program.parameters()).device)
+        return cls(front, meta).warm_up()
+
+    def warm_up(self) -> "DetectorService":
+        """One request on a black canvas before the server listens."""
+        self.detect(np.zeros((*self.pad_hw, 3), np.uint8))
+        return self
 
     def preprocess(self, img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """([1, H, W, 3] uint8 canvas, [1, 2] float32 scale_xy) of one image:
@@ -199,26 +234,30 @@ def make_server(service: DetectorService, host: str = "127.0.0.1", port: int = 8
 
 def main(argv=None, device: str = "cuda") -> None:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--artifact", default="", help="a serialized model (not ported)")
+    p.add_argument("--artifact", default="", help="a model.pt2 of tools/export_model.py")
     p.add_argument("--config-file", default="", help="the recipe of live mode")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8321)
     p.add_argument("--cpu", action="store_true", help="serve on the CPU instead of the card")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[], help="dotted-key config overrides")
     args = p.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError("artifact mode serves a model exported by tools/export_model.py, "
-                                  "which is not ported; serve live with --config-file")
-    if not args.config_file:
-        raise SystemExit("need --config-file (live mode)")
-    from dafne_torch.config import get_cfg
-
+    device = "cpu" if args.cpu else device
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = get_cfg()
-    cfg.merge_from_file(args.config_file)
-    if args.opts:
-        cfg.merge_from_list(args.opts)
-    service = DetectorService.from_config(cfg, device="cpu" if args.cpu else device)
+    if args.artifact:
+        if args.opts:
+            raise SystemExit(f"KEY VALUE overrides do not apply to an exported artifact (got "
+                             f"{args.opts}); export again with the config wanted")
+        service = DetectorService.from_artifact(args.artifact, device)
+    elif args.config_file:
+        from dafne_torch.config import get_cfg
+
+        cfg = get_cfg()
+        cfg.merge_from_file(args.config_file)
+        if args.opts:
+            cfg.merge_from_list(args.opts)
+        service = DetectorService.from_config(cfg, device)
+    else:
+        raise SystemExit("need --artifact or --config-file")
     srv = make_server(service, args.host, args.port)
     print(json.dumps({"serving": f"http://{args.host}:{srv.server_address[1]}",
                       "canvas": list(service.pad_hw), "batch": service.batch}), flush=True)

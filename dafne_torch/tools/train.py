@@ -9,9 +9,12 @@ needs PyYAML; dotted overrides alone do not) and the dotted overrides,
 ``--eval-only`` (restore the newest checkpoint of OUTPUT_DIR, else
 MODEL.WEIGHTS, run ``do_test`` and, with TEST.AUG.ENABLED,
 ``engine/tta.py::do_test_with_tta`` into results["tta"]) or ``do_train``
-over DATASETS.TRAIN followed by ``do_test``.  A failure writes its
-traceback to OUTPUT_DIR/error.txt (error_rank<r>.txt for each process of
-a process group).  The last log line of a run is its summary, one JSON
+over DATASETS.TRAIN followed by ``do_test``.  The run's report
+(``utils/notify.py``: OUTPUT_DIR/run_report.json, DAFNE_NOTIFY_CMD,
+EMAIL_CREDENTIALS) says ``eval_done`` or ``train_done`` with the results,
+or ``failed`` with the traceback; only process 0 reports.  A failure
+also writes its traceback to OUTPUT_DIR/error.txt (error_rank<r>.txt for
+each process of a process group).  The last log line of a run is its summary, one JSON
 object: the process's rank, its kernels' launches, its peak device memory
 and, after training, each step's ms and total loss.
 
@@ -37,6 +40,8 @@ import sys
 import traceback
 
 import torch
+
+from dafne_torch.utils.notify import notify
 
 
 def parse_args(argv=None):
@@ -104,19 +109,25 @@ def _run(args, device, grouped, stats, tta_stats, train_stats):
             results = do_test(cfg, model, cfg.OUTPUT_DIR, stats=stats)
             if cfg.TEST.AUG.ENABLED:
                 results["tta"] = do_test_with_tta(cfg, model, cfg.OUTPUT_DIR, stats=tta_stats)
+            status = "eval_done"
         else:
             records = []
             for name in cfg.DATASETS.TRAIN:
                 records += get_dataset(name, cfg)
             do_train(cfg, model, records, resume=args.resume, stats=train_stats)
             results = do_test(cfg, model, cfg.OUTPUT_DIR, stats=stats)
+            status = "train_done"
         logging.getLogger("dafne_torch").info("run summary " + json.dumps(run_summary(dev, train_stats)))
+        if dist.is_main_process():
+            notify(status, cfg, results)
         return results
     except Exception:
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
         name = f"error_rank{dist.process_index()}.txt" if grouped else "error.txt"
         with open(os.path.join(cfg.OUTPUT_DIR, name), "w") as f:
             f.write(traceback.format_exc())
+        if dist.is_main_process():
+            notify("failed", cfg, error=traceback.format_exc())
         raise
 
 

@@ -86,11 +86,11 @@ def test_every_recipe_builds_a_model(recipe):
 def test_port_imports_nothing_of_jax():
     """Every dafne_torch module (``dafne_torch.parallel.*`` with
     ``torch.distributed`` among them) and chip_smoke import with jax, flax,
-    optax, dafne_tpu, cv2, PIL and yaml blocked."""
+    optax, dafne_tpu, cv2, PIL, yaml and tensorboard blocked."""
     modules = [m.name for m in pkgutil.walk_packages(dafne_torch.__path__, "dafne_torch.")]
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'dafne_tpu', 'cv2', 'PIL', 'yaml'):\n"
+        "for m in ('jax', 'flax', 'optax', 'dafne_tpu', 'cv2', 'PIL', 'yaml', 'tensorboard'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {modules + ['chip_smoke']!r}:\n"
@@ -112,7 +112,9 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.evaluation.result_merge", "dafne_torch.data.image_warp",
               "dafne_torch.parallel", "dafne_torch.parallel.distributed",
               "dafne_torch.parallel.mesh", "dafne_torch.layers.deform_conv",
-              "dafne_torch.ops.kernels.deform_conv", "dafne_torch.models.backbones"):
+              "dafne_torch.ops.kernels.deform_conv", "dafne_torch.models.backbones",
+              "dafne_torch.ops.kernels.library", "dafne_torch.tools.export_model",
+              "dafne_torch.utils.notify"):
         assert m in modules
 
 
@@ -121,7 +123,8 @@ def test_slice_keys_have_the_jax_defaults():
     for key in ("TEST.AUG.MIN_SIZES", "TEST.AUG.MAX_SIZE", "TEST.AUG.FLIP", "TEST.AUG.HFLIP",
                 "TEST.AUG.VFLIP", "TEST.AUG.ROTATION_ANGLES", "TPU.TTA_DEVICE_AUG",
                 "TPU.TRAIN_DEVICE_AUG", "TPU.EVAL_INT8", "TPU.EVAL_INT8_SCALES",
-                "TPU.EVAL_INT8_MIN_CHANNELS", "TPU.DECODE_APPROX_TOPK"):
+                "TPU.EVAL_INT8_MIN_CHANNELS", "TPU.DECODE_APPROX_TOPK", "EXPERIMENT_NAME",
+                "DEBUG.PROFILE_ITERS"):
         assert key in leaves, key  # equal to JAX's: test_every_port_default_equals_jax_default
 
 

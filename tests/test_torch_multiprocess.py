@@ -111,7 +111,8 @@ def test_cli_two_processes_train_eval_and_resume(tmp_path):
     assert task1(ev, "inference_tta") == task1(ev1, "inference_tta")
     assert any(task1(ev1, "inference_tta").values())
     assert sorted(os.listdir(ev)) == ["checkpoints", "config.yaml", "inference", "inference_tta",
-                                      "log.txt", "log.txt.rank1", "test_results.csv"]
+                                      "log.txt", "log.txt.rank1", "run_report.json",
+                                      "test_results.csv"]
     with open(ev / "test_results.csv") as f:
         rows = f.read().splitlines()
     assert len(rows) == 1 + len(want)  # the header and one row per metric: written once

@@ -7,7 +7,8 @@ checkpoint under OUTPUT_DIR; PNG, JPEG and .npy bodies return the
 detections ``Predictor.detect`` gives for the same decoded image;
 undecodable bodies, images over the pixel cap and malformed arrays are
 400, unknown paths 404.  ``preprocess`` equals the port's eval mapper and
-the JAX server's ``DetectorService.preprocess``.  ``python -m
+the JAX server's ``DetectorService.preprocess``.  Artifact mode refuses a
+missing or weights-as-args artifact.  ``python -m
 dafne_torch.tools.serve`` starts, prints its JSON line and answers.
 """
 
@@ -202,7 +203,7 @@ def test_preprocess_equals_eval_mapper_and_jax_server(tmp_path):
         np.testing.assert_array_equal(fcanvas, canvas)
 
 
-def test_decode_image_body_and_artifact_mode():
+def test_decode_image_body_and_artifact_mode(tmp_path):
     img = np.arange(2 * 3 * 3, dtype=np.uint8).reshape(2, 3, 3)
     buf = io.BytesIO()
     np.save(buf, img)
@@ -211,8 +212,14 @@ def test_decode_image_body_and_artifact_mode():
     np.testing.assert_array_equal(serve.decode_image_body(png.tobytes(), "RGB"), img[:, :, ::-1])
     with pytest.raises(ValueError, match="undecodable"):
         serve.decode_image_body(b"\x89PNG\r\n\x1a\n broken")
-    with pytest.raises(NotImplementedError, match="tools/export_model.py"):
-        serve.main(["--artifact", "model.stablehlo"])
+    # artifact mode refuses a missing artifact and a weights-as-args one
+    # (tests/test_torch_export.py serves a real one)
+    with pytest.raises(SystemExit, match="no artifact"):
+        serve.main(["--artifact", str(tmp_path / "model.pt2"), "--cpu"])
+    (tmp_path / "model.pt2").write_bytes(b"")
+    (tmp_path / "export_meta.json").write_text(json.dumps({"weights_as_args": True}))
+    with pytest.raises(SystemExit, match="weights-as-args"):
+        serve.main(["--artifact", str(tmp_path / "model.pt2"), "--cpu"])
 
 
 def test_module_serves_over_http(tmp_path):

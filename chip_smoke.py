@@ -158,7 +158,8 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      printed; then two gloo ranks --eval-only on (a)'s checkpoint at
      global batch 8, held to (a)'s do_test (>= 99% of the detections
      matched within 1e-4 and 1e-2, mAP within 0.1); (c) (a)'s checkpoint resumed by
-     two ranks to DIST_RESUME_TO, each metric row written once; (d) K3
+     two ranks to DIST_RESUME_TO (beside those --eval-only ranks), each
+     metric row written once; (d) K3
      once per step and K1 and greedy once per eval batch on every rank,
      rank 0's train and eval inputs held to the plain versions; (e) two
      NCCL ranks on the one card, what NCCL says (not a pass condition);
@@ -220,6 +221,27 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      launches_by_path ["export_serve"]); K1's bits and greedy's keep-set
      through torch.ops.dafne bit-equal to their plain versions on one
      request's NMS input, each op timed beside its direct launcher.
+ 22. int8 eval (phase_int8, TPU.EVAL_INT8): (a) the DOTA-1.0 1024 recipe's
+     int8 eval programs at full width, batch 8, 1024^2 (seeded weights,
+     class bias -2), dynamic (auto width 256) and static (auto width 64,
+     scales from calibrate_act_scales on INT8_CALIB_BATCHES batches on the
+     card): at every distinct quantized site of one forward the activation
+     quantize (quantize_act) and the implicit-GEMM conv (int8_conv) of
+     csrc/int8_conv.cu bit-equal to their plain versions; both timed at the
+     P3 tower 3x3 and a res4 1x1 (events, device ms, plain ms, bound;
+     torch._int_mm on the 1x1's matrix and the bf16 cuDNN conv as
+     yardsticks the port never calls); (b) the eval step in bf16, int8
+     dynamic and int8 static: step and forward ms, sites, launches equal to
+     the site calls of a forward times the forwards, peak memory; the
+     narrow float32 model's int8 eval step on the card against the CPU,
+     free-running (printed: int8's own noise) and with the card's int8
+     sites fed the CPU's inputs call for call (>= 99% of detections
+     matched both ways); (c) phase 19's canary checkpoint evaluated in bf16,
+     int8 dynamic and int8 static (mAPs printed, not a gate); (d) the static
+     int8 eval step exported at batch 1 and served from the artifact beside
+     live int8 mode, both as processes: the 1024^2 PNG and a JPEG answered
+     with bit-equal detection lists, /healthz's int8 launches.  Launches
+     under launches_by_path ["eval_int8"] and ["export_serve_int8"].
 
 A failing phase prints "chip_smoke: phase <n> <name> failed: <message>"
 on stdout before the nonzero exit.
@@ -229,7 +251,8 @@ The line before the last holds one JSON object with every kernel's numbers
 15's two CLI runs, 16's eval, serve and TTA runs, 17, 18, 19, 20 and 21's
 artifact server, and their "op_ms" through torch.ops.dafne, K3's
 from phases 7, 14, 15's and 16's CLI runs, 17, 18, 19 and 20, K2's from
-phase 11's replay, the deformable sampler's from phase 20's CLI runs;
+phase 11's replay, the deformable sampler's from phase 20's CLI runs, the
+int8 kernels' from phase 22's eval steps and artifact server;
 "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
@@ -903,7 +926,13 @@ def wait_ranks(procs, timeout=DIST_TIMEOUT_S):
 def run_ranks(args, out_dir, world, what, flags=(), collectives="gloo"):
     """``launch_ranks`` and ``wait_ranks``; raises unless every process
     exits 0.  Returns each rank's run summary (the CLI's last log line)."""
-    res = wait_ranks(launch_ranks(args, out_dir, world, flags, collectives))
+    return rank_results(wait_ranks(launch_ranks(args, out_dir, world, flags, collectives)), world,
+                        what)
+
+
+def rank_results(res, world, what):
+    """Each rank's run summary of ``wait_ranks``'s results; raises unless
+    every process exited 0."""
     for r, (rc, text) in enumerate(res):
         if rc != 0:
             raise SystemExit(f"{what}: rank {r} of {world} exited {rc}: ...{text[-3000:]}")
@@ -1046,12 +1075,21 @@ def phase_distributed(card):
     det_b = read_task1(dir_b, val_set, GEN_CLASSES)
     res_a, res_b = read_results(dir_a, val_set), read_results(dir_b, val_set)
     trained = match_rate(det_b, det_a, *DIST_MATCH_TOL)
-    # the two ranks' evaluation alone: --eval-only on (a)'s checkpoint
+    # the two ranks' evaluation alone: --eval-only on (a)'s checkpoint, while
+    # (c)'s two ranks resume (a)'s checkpoint beside them (both start from it)
     dir_e = os.path.join(root, "two_ranks_eval")
     shutil.copytree(os.path.join(dir_a, "checkpoints"), os.path.join(dir_e, "checkpoints"))
+    dir_c = os.path.join(root, "elastic")
+    shutil.copytree(dir_a, dir_c, ignore=shutil.ignore_patterns("inference", "test_results.csv"))
     t0 = time.perf_counter()
-    se = run_ranks(args, dir_e, 2, "(b) two gloo ranks, --eval-only", flags=("--eval-only",))
-    e_s = time.perf_counter() - t0
+    procs_c = launch_ranks(args + ["SOLVER.MAX_ITER", str(DIST_RESUME_TO), "DATASETS.TEST", "()"],
+                           dir_c, 2, flags=("--resume",))
+    try:
+        se = run_ranks(args, dir_e, 2, "(b) two gloo ranks, --eval-only", flags=("--eval-only",))
+        e_s = time.perf_counter() - t0
+    finally:
+        res_c = wait_ranks(procs_c)
+    c_s = time.perf_counter() - t0
     det_e, res_e = read_task1(dir_e, val_set, GEN_CLASSES), read_results(dir_e, val_set)
     matched, total = match_rate(det_e, det_a)  # score within 1e-4, corners within 1e-2
     loose = match_rate(det_e, det_a, *DIST_MATCH_TOL)[0]
@@ -1076,7 +1114,7 @@ def phase_distributed(card):
         f", mAP {res_b['mAP']:.4f} against (a)'s {res_a['mAP']:.4f} (not a pass condition: "
         f"bf16 steps at batch 4 and 8 round apart) [{card}]")
     log(f"[dist b] two gloo ranks --eval-only on (a)'s checkpoint at global batch {BATCH} "
-        f"({e_s:.1f} s wall), against (a)'s do_test at batch {BATCH // 2}: detections {matched} "
+        f"({e_s:.1f} s wall, (c)'s two ranks beside them), against (a)'s do_test at batch {BATCH // 2}: detections {matched} "
         f"of {total} matched (score within 1e-4, corners within 1e-2; {loose} within "
         f"{DIST_MATCH_TOL[0]} and {DIST_MATCH_TOL[1]} px; Task1 files identical: {same_files}), "
         f"mAP {res_e['mAP']:.4f} against {res_a['mAP']:.4f} [{card}]")
@@ -1090,15 +1128,12 @@ def phase_distributed(card):
             or [f for f in written if f.startswith("error")]):
         raise SystemExit("(b) the ranks did not write their files once, by rank 0")
 
-    # (c) elastic: (a)'s last checkpoint resumes under two ranks to DIST_RESUME_TO
-    dir_c = os.path.join(root, "elastic")
-    shutil.copytree(dir_a, dir_c, ignore=shutil.ignore_patterns("inference", "test_results.csv"))
-    t0 = time.perf_counter()
-    sc = run_ranks(args + ["SOLVER.MAX_ITER", str(DIST_RESUME_TO), "DATASETS.TEST", "()"], dir_c,
-                   2, "(c) elastic resume", flags=("--resume",))
+    # (c) elastic: (a)'s last checkpoint resumed under two ranks to
+    # DIST_RESUME_TO (run beside (b)'s --eval-only ranks above)
+    sc = rank_results(res_c, 2, "(c) elastic resume")
     rows_c = metric_rows(dir_c)
     log(f"[dist c] (a)'s step-{DIST_STEPS} checkpoint resumed by two gloo ranks to step "
-        f"{DIST_RESUME_TO} in {time.perf_counter() - t0:.1f} s wall: losses "
+        f"{DIST_RESUME_TO} in {c_s:.1f} s wall (beside (b)'s --eval-only ranks): losses "
         f"{json.dumps(sc[0]['loss'])}, metrics.json rows {rows_c}, checkpoints "
         f"{sorted(os.listdir(os.path.join(dir_c, 'checkpoints')))} [{card}]")
     if (rows_c != [1, DIST_STEPS + 1] or [len(s["loss"]) for s in sc] != [2, 2]
@@ -1442,6 +1477,442 @@ def phase_export(card, bias_minus_2_checkpoint):
     torch.cuda.empty_cache()
     log(f"[export] phase 21 wall time {time.perf_counter() - t21:.1f} s [{card}]")
     return {k: health["launches"][k] for k in ("suppression_matrix", "greedy_keep")}, op_ms
+
+
+# ---- 22. int8 eval ----------------------------------------------------------
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+INT8_SEED = 22  # the torch seed of phase 22's model
+INT8_STEPS = 3  # timed eval steps of each program in (b)
+INT8_CALIB_BATCHES = 2  # calibration batches of 8 on the card
+INT8_NARROW_MIN = 32  # EVAL_INT8_MIN_CHANNELS of the narrow card-against-CPU check
+INT8_CANARY_DROP = 1.0  # JAX's int8 canary gate: int8 mAP within 1 point of bf16
+INT8_BODIES = ("scene0.png", "text_1.jpg")  # request bodies of (d)
+
+
+def int8_site_inputs(step, images):
+    """({key: (first input, module, calls)}, calls per forward) of every
+    Int8Conv2d of `step`'s program in one forward of `images`; the key is
+    (input shape, dtype, output channels, kernel, stride, padding,
+    dilation, bias, mode)."""
+    from dafne_torch.layers import quant as Q
+
+    sites, calls = {}, [0]
+
+    def hook(mod, args):
+        x = args[0]
+        key = (tuple(x.shape), str(x.dtype).split(".")[-1], mod.weight_q.shape[0],
+               tuple(mod.weight_q.shape[1:3]), tuple(mod.stride), tuple(mod.padding),
+               tuple(mod.dilation), mod.bias is not None, mod.mode)
+        if key not in sites:
+            sites[key] = [x.detach().clone(), mod, 0]
+        sites[key][2] += 1
+        calls[0] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in step.program.model.modules()
+               if isinstance(m, Q.Int8Conv2d)]
+    try:
+        with torch.inference_mode():
+            step.program.model(images)
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    return sites, calls[0]
+
+
+def int8_site_args(x, mod):
+    """(static scale, the conv's arguments after x_q and x_s) of one site."""
+    from dafne_torch.ops.kernels import quant as QK
+
+    scale = 0.0 if mod.act_amax is None else QK.static_act_scale(mod.act_amax)
+    bias = None if mod.bias is None else mod.bias.float()
+    return scale, (mod.weight_q, mod.weight_scale, bias, list(mod.stride), list(mod.padding),
+                   list(mod.dilation), x.dtype)
+
+
+@torch.inference_mode()
+def check_int8_site(x, mod):
+    """Raise unless quantize_act and int8_conv are bit-equal to their plain
+    versions on this site's input."""
+    from dafne_torch.ops.kernels import quant as QK
+
+    scale, conv_args = int8_site_args(x, mod)
+    xq, xs = QK.quantize_act_cuda(x, scale)
+    pq, ps = QK.quantize_act_plain(x, scale)
+    if not (torch.equal(xq, pq) and torch.equal(xs, ps)):
+        raise SystemExit(f"quantize_act differs from its plain version at {list(x.shape)}: "
+                         f"{int((xq != pq).sum())} values, scales {xs.tolist()} vs {ps.tolist()}")
+    y = QK.int8_conv_cuda(xq, xs, *conv_args)
+    yp = QK.int8_conv_plain(xq, xs, *conv_args)
+    if not torch.equal(y, yp):
+        raise SystemExit(f"int8_conv differs from its plain version at {list(x.shape)} -> "
+                         f"{list(y.shape)}: max |diff| {(y.float() - yp.float()).abs().max():.6g}")
+
+
+@torch.inference_mode()
+def int8_times(x, mod, card, what):
+    """{"quantize": {...}, "conv": {...}} of one site: the wrappers' CUDA
+    events (median of OP_REPS), the kernels' device ms, the plain versions'
+    ms, the bounds, and the yardsticks the port never calls (torch._int_mm
+    on the same NHWC matrix for a 1x1 stride-1 site; the bf16 cuDNN conv of
+    the same shape, the time int8 has to beat, not the same function)."""
+    import torch.nn.functional as F
+    from dafne_torch.ops.kernels import quant as QK
+
+    scale, conv_args = int8_site_args(x, mod)
+    wq, ws, bias, stride, padding, dilation, _ = conv_args
+    n, c, h, w = x.shape
+    o, kh, kw = wq.shape[:3]
+    ho, wo = QK.conv_out_hw(h, w, kh, kw, stride, padding, dilation)
+    xq, xs = QK.quantize_act_cuda(x, scale)
+    q = {"ms": cuda_ms(lambda: QK.quantize_act_cuda(x, scale), reps=OP_REPS),
+         "device_ms": device_ms(lambda: QK.quantize_act_cuda(x, scale), "quantize_act"),
+         "plain_ms": cuda_ms(lambda: QK.quantize_act_plain(x, scale), reps=PLAIN_REPS, warmup=0),
+         "bound_ms": QK.quantize_bytes(n, c, h, w, x.element_size()) / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "library_ms": None}
+    ops = QK.conv_ops(n, c, o, kh, kw, ho, wo)
+    nbytes = QK.conv_bytes(n, c, h, w, o, kh, kw, ho, wo, x.element_size(), bias is not None)
+    bounds = {"operations": ops / INT8_OPS_PER_S * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(bounds, key=bounds.get)
+    library_ms = None
+    if (kh, kw) == (1, 1) and stride == [1, 1] and padding == [0, 0]:
+        a2, b2 = xq.reshape(n * h * w, c), wq.reshape(o, c).t()
+        library_ms = cuda_ms(lambda: torch._int_mm(a2, b2), reps=OP_REPS)
+    wf = mod.weight_q.permute(0, 3, 1, 2).to(x.dtype).contiguous()
+    bf = None if bias is None else bias.to(x.dtype)
+    conv = {"ms": cuda_ms(lambda: QK.int8_conv_cuda(xq, xs, *conv_args), reps=OP_REPS),
+            "device_ms": device_ms(lambda: QK.int8_conv_cuda(xq, xs, *conv_args), "int8_conv"),
+            "plain_ms": cuda_ms(lambda: QK.int8_conv_plain(xq, xs, *conv_args), reps=PLAIN_REPS,
+                                warmup=0),
+            "bound_ms": bounds[by], "bound_by": by, "library_ms": library_ms,
+            "bf16_conv_ms": cuda_ms(lambda: F.conv2d(x, wf, bf, stride, padding, dilation),
+                                    reps=OP_REPS),
+            "shape": [n, c, h, w, o, kh, stride[0]]}
+    conv["tops"] = round(ops / (conv["ms"] * 1e-3) / 1e12, 1)
+    log(f"[int8 {what}] x {list(x.shape)} {x.dtype} -> {o} channels, {kh}x{kw} stride {stride[0]} "
+        f"({mod.mode} scale): quantize_act ms={q['ms']:.4f} device_ms={fmt_ms(q['device_ms'])} "
+        f"plain_ms={q['plain_ms']:.3f} bound_ms={q['bound_ms']:.4f} (bytes: x read once, x_q "
+        f"written once); int8_conv ms={conv['ms']:.4f} device_ms={fmt_ms(conv['device_ms'])} "
+        f"({conv['tops']} int8 TOPS on the events) plain_ms={conv['plain_ms']:.2f} bound_ms="
+        f"{conv['bound_ms']:.4f} ({by}: {ops / 1e9:.1f} G int8 ops at 1,979 TOPS "
+        f"{bounds['operations']:.4f}, {nbytes / 1e6:.1f} MB at 3.35 TB/s {bounds['bytes']:.4f}); "
+        f"yardsticks the port never calls: torch._int_mm on the same [M, C] x [C, O] matrix "
+        f"{fmt_ms(library_ms)} (1x1 stride-1 sites only: s32 out, no epilogue), bf16 cuDNN conv of "
+        f"the same shape {conv['bf16_conv_ms']:.4f} (the time int8 has to beat) [{card}]")
+    return {"quantize": q, "conv": conv}
+
+
+def phase_int8(card, cli_main):
+    """Phase 22: int8 eval (TPU.EVAL_INT8) on the DOTA-1.0 1024 recipe at full
+    width.  (a) every distinct quantized site of one forward, dynamic (auto
+    width 256) and static (auto width 64), its kernels bit-equal to the
+    plain versions, timed at the P3 tower 3x3 and a res4 1x1; (b) the eval
+    step in bf16, int8 dynamic and int8 static (scales from
+    calibrate_act_scales on INT8_CALIB_BATCHES batches on the card): step
+    and forward ms, sites, launches (the site calls of a forward times the
+    forwards), peak memory; the narrow model on the card against the CPU;
+    (c) the canary's checkpoint of phase 19 in bf16, int8 dynamic and int8
+    static (``int8_canary``, in this process while (d)'s export and live
+    server start); (d) the static int8 eval step exported at batch 1 and
+    served from the artifact beside live int8 mode, answer lists bit-equal.
+    Returns the two kernels' rows of the kernels line."""
+    from dafne_torch.config import get_cfg
+    from dafne_torch.data.synthetic import load_synthetic_gen
+    from dafne_torch.engine.checkpoint import Checkpointer
+    from dafne_torch.engine.inference import make_eval_step
+    from dafne_torch.layers import quant as Q
+    from dafne_torch.models import build_model
+    from dafne_torch.ops.kernels import quant as QK
+
+    t22 = time.perf_counter()
+    b = BATCH
+    out = os.path.join(ROOT, "output", "chip_smoke_int8_eval")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    recipe = os.path.join(ROOT, EXPORT_RECIPE)
+    cfg = get_cfg()
+    cfg.merge_from_file(recipe)
+    cfg.merge_from_list(["TPU.EVAL_BATCH", str(b), "OUTPUT_DIR", out])
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(INT8_SEED))
+    with torch.no_grad():
+        model.head.cls_logits.bias.fill_(-2.0)
+    model.eval()
+    scenes = [r["image"] for r in load_synthetic_gen("test", (INT8_CALIB_BATCHES + 1) * b,
+                                                      hw=CANVAS, max_boxes=96)]
+    batches = [torch.from_numpy(np.stack(scenes[i * b:(i + 1) * b])).cuda()
+               for i in range(INT8_CALIB_BATCHES + 1)]
+    images = batches[-1]
+
+    # (b, set-up) calibration on the card, then the three programs
+    t0 = time.perf_counter()
+    scales = Q.calibrate_act_scales(model, batches[:INT8_CALIB_BATCHES], min_channels=64)
+    calib_s = time.perf_counter() - t0
+    scales_path = os.path.join(out, "int8_scales.json")
+    Q.save_act_scales(scales_path, scales)
+    steps = {}
+    for mode in ("bf16", "int8_dynamic", "int8_static"):
+        c = copy.deepcopy(cfg)
+        c.TPU.EVAL_INT8 = mode != "bf16"
+        c.TPU.EVAL_INT8_SCALES = scales_path if mode == "int8_static" else ""
+        steps[mode] = make_eval_step(model, c, (CANVAS, CANVAS))
+    if (steps["int8_dynamic"].program.int8["min_channels"] != 256
+            or steps["int8_static"].program.int8["min_channels"] != 64
+            or steps["int8_static"].program.int8["static_sites"] != len(scales)):
+        raise SystemExit(f"int8 programs: {[s.program.int8 for s in steps.values()]}")
+
+    # (a) the kernels at every distinct site of the recipe
+    phase_a = time.perf_counter()
+    site_calls = {}
+    checked = 0
+    timed = {}
+    for mode in ("int8_dynamic", "int8_static"):
+        sites, site_calls[mode] = int8_site_inputs(steps[mode], images)
+        for key, (x, mod, _) in sites.items():
+            check_int8_site(x, mod)
+            checked += 1
+        if mode == "int8_dynamic":  # the largest 3x3 site (P3) and res4's largest 1x1
+            timed["P3"] = max((v[:2] for k, v in sites.items() if k[3] == (3, 3)),
+                              key=lambda v: v[0].numel())
+            timed["res4_1x1"] = max(
+                (v[:2] for k, v in sites.items()
+                 if k[3] == (1, 1) and k[4] == (1, 1) and k[0][2] == CANVAS // 16),
+                key=lambda v: v[0].numel())
+        shapes = sorted({(k[0], k[2], k[3], k[4]) for k in sites})
+        log(f"[int8 sites {mode}] {steps[mode].program.int8['sites']} "
+            f"sites, {site_calls[mode]} calls per forward (the towers' convs once per level), "
+            f"{len(sites)} distinct (input, conv) shapes, each quantize_act and int8_conv bit-equal "
+            f"to its plain version: {json.dumps([[list(s), o, list(k), list(st)] for s, o, k, st in shapes])} "
+            f"[{card}]")
+        del sites
+        torch.cuda.empty_cache()
+    times = {what: int8_times(x, mod, card, what) for what, (x, mod) in timed.items()}
+    del timed
+    torch.cuda.empty_cache()
+    phase_a = time.perf_counter() - phase_a
+
+    # (b) the eval step at full width: bf16, int8 dynamic, int8 static
+    path_launches = {}
+    summary = {}
+    for mode, step in steps.items():
+        with torch.inference_mode():
+            step(images)
+            torch.cuda.synchronize()
+            QK.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = host_ms(lambda: step(images), reps=INT8_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = {"quantize_act": QK.quantize_act_cuda.launches,
+                        "int8_conv": QK.int8_conv_cuda.launches}
+            fwd_ms = host_ms(lambda: step.program.model(images), reps=INT8_STEPS)
+        want = INT8_STEPS * site_calls.get(mode, 0)
+        if set(launches.values()) != {want}:
+            raise SystemExit(f"{mode}: launches {launches} in {INT8_STEPS} eval steps, not "
+                             f"{site_calls.get(mode, 0)} site calls x {INT8_STEPS}")
+        path_launches[mode] = launches
+        summary[mode] = {"eval_step_ms": round(step_ms, 2), "forward_ms": round(fwd_ms, 2),
+                         "sites": step.program.int8["sites"],
+                         "site_calls_per_forward": site_calls.get(mode, 0),
+                         "launches": launches, "peak_memory_gib": round(peak, 2)}
+    log(f"[int8 eval] DOTA-1.0 1024 recipe (R-50, FPN P3-P7, GN towers, 15 classes, bf16, "
+        f"{CANVAS}^2, batch {b}, seeded weights, class bias -2); calibration on "
+        f"{INT8_CALIB_BATCHES} batches in {calib_s:.2f} s ({len(scales)} sites); host clock around "
+        f"the step or the forward and a synchronize, median of {INT8_STEPS}: {json.dumps(summary)} "
+        f"[{card}]")
+
+    # the narrow float32 model, card against CPU
+    ncfg = get_cfg()
+    ncfg.merge_from_list(NARROW + ["TPU.NMS_MAX_CANDIDATES", "1024", "MODEL.DAFNE.POST_NMS_TOPK_TEST",
+                                   "300", "TPU.EVAL_INT8", "True", "TPU.EVAL_INT8_MIN_CHANNELS",
+                                   str(INT8_NARROW_MIN)])
+    ref = build_model(ncfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref.head.cls_logits.bias.fill_(-2.0)
+    ref.eval()
+    small = torch.from_numpy(np.stack([r["image"] for r in load_synthetic_gen("test", 2, hw=256)])
+                             .astype(np.float32))
+    nscales = os.path.join(out, "narrow_scales.json")
+    Q.save_act_scales(nscales, Q.calibrate_act_scales(ref, [small], INT8_NARROW_MIN))
+    narrow = {}
+    for mode in ("dynamic", "static"):
+        c = copy.deepcopy(ncfg)
+        c.TPU.EVAL_INT8_SCALES = nscales if mode == "static" else ""
+        cpu_step = make_eval_step(ref, c, (256, 256))
+        card_step = make_eval_step(copy.deepcopy(ref).cuda(), c, (256, 256))
+        # free running: each side's own float path into its int8 sites
+        want = {k: v.numpy() for k, v in cpu_step(small).items()}
+        got = {k: v.cpu().numpy() for k, v in card_step(small.cuda()).items()}
+        free = match_rate(int8_preds(got), int8_preds(want))
+        # forced: the card's int8 sites fed the CPU's inputs, call for call
+        recorded = {}
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, name=name: recorded.setdefault(name, []).append(args[0].clone()))
+            for name, m in cpu_step.program.model.named_modules() if isinstance(m, Q.Int8Conv2d)]
+        want = {k: v.numpy() for k, v in cpu_step(small).items()}
+        for h in hooks:
+            h.remove()
+        outputs = {}
+        hooks = []
+        for name, m in card_step.program.model.named_modules():
+            if isinstance(m, Q.Int8Conv2d):
+                hooks.append(m.register_forward_pre_hook(
+                    lambda mod, args, name=name: (recorded[name].pop(0).cuda(),)))
+        got = {k: v.cpu().numpy() for k, v in card_step(small.cuda()).items()}
+        for h in hooks:
+            h.remove()
+        forced = match_rate(int8_preds(got), int8_preds(want))
+        back = match_rate(int8_preds(want), int8_preds(got))
+        narrow[mode] = {"sites": card_step.program.int8["sites"], "free": free, "forced": forced,
+                        "forced_back": back}
+        if any(recorded.values()) or forced[1] < 100 or min(forced[0] / forced[1],
+                                                            back[0] / max(back[1], 1)) < 0.99:
+            raise SystemExit(f"narrow int8 {mode}, card against CPU on the CPU's site inputs: "
+                             f"{narrow[mode]}")
+    log(f"[int8 narrow] the narrow float32 R-50, 256^2, batch 2, EVAL_INT8_MIN_CHANNELS "
+        f"{INT8_NARROW_MIN}: CPU detections matched on the card (score within 1e-4, corners within "
+        f"1e-2) {json.dumps(narrow)}; forced: the card's int8 sites fed the CPU's inputs call for "
+        f"call (the float layers between sites drift by ~1e-7, and a drifted value at a rounding "
+        f"boundary flips its int8 value, which the next sites amplify: the free-running match "
+        f"rate is int8's own noise, as on the CPU against JAX) [{card}]")
+
+    # (d) the static int8 eval step exported at batch 1 and served beside
+    # live int8 mode: the export and the live server start now, and (c)
+    # runs in this process meanwhile (it measures mAPs, no times)
+    Checkpointer(out).save(1, model)
+    del model, steps, batches, images
+    torch.cuda.empty_cache()
+    int8_args = ["OUTPUT_DIR", out, "TPU.EVAL_INT8", "True", "TPU.EVAL_INT8_SCALES", scales_path]
+    bodies = {k: v for k, v in request_bodies(out).items() if k in INT8_BODIES}
+    servers = []
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            live = pool.submit(start_server, ["--config-file", recipe] + int8_args,
+                               os.path.join(out, "serve_live.log"))
+            export = pool.submit(run_tool, ["dafne_torch.tools.export_model", "--config-file",
+                                            recipe, "--batch", "1"] + int8_args,
+                                 "export_model (int8 static)", 900)
+            art = None
+            try:
+                int8_canary(card, cli_main, out)  # (c)
+                stdout, export_s = export.result()
+                exported = json.loads(stdout.strip().splitlines()[-1])
+                art = pool.submit(start_server, ["--artifact", exported["artifact"]],
+                                  os.path.join(out, "serve_artifact.log"))
+            finally:
+                servers = [f.result()[0] for f in (live, art)
+                           if f is not None and f.exception() is None]
+        _, live_port, _, live_start_s = live.result()
+        _, art_port, _, art_start_s = art.result()
+        x8 = exported["int8"]
+        if (x8["mode"] != "static" or x8["sites"] != len(scales) or x8["scales"] != scales
+                or exported["ops"].get("quantize_act") != site_calls["int8_static"]
+                or exported["ops"].get("int8_conv") != site_calls["int8_static"]):
+            raise SystemExit(f"the exported int8 program: ops {exported['ops']}, int8 "
+                             f"{ {k: v for k, v in x8.items() if k != 'scales'} }")
+        exact, n_dets, request_ms = 0, 0, {}
+        for name, body in bodies.items():
+            replies = {}
+            for mode, port in (("artifact", art_port), ("live", live_port)):
+                t0 = time.perf_counter()
+                status, reply = http_call(port, "POST", "/detect", body)
+                request_ms.setdefault(mode, {})[name] = round((time.perf_counter() - t0) * 1e3, 2)
+                if status != 200:
+                    raise SystemExit(f"POST {name} to {mode} int8 mode: {status} {reply}")
+                replies[mode] = reply["detections"]
+            exact += replies["artifact"] == replies["live"]
+            n_dets += len(replies["live"])
+        healths = {mode: http_call(port, "GET", "/healthz")[1]
+                   for mode, port in (("artifact", art_port), ("live", live_port))}
+    finally:
+        for server in servers:
+            stop_server(server)
+    served = len(bodies) + 1  # and the warm-up
+    calls = site_calls["int8_static"]
+    for mode, health in healths.items():
+        h8 = health["int8"]
+        if (h8["mode"] != "static" or h8["sites"] != len(scales)
+                or set(h8["launches"].values()) != {served * calls}):
+            raise SystemExit(f"the {mode} int8 server's /healthz after {served} requests: {h8}")
+    log(f"[int8 export] python -m dafne_torch.tools.export_model --batch 1 TPU.EVAL_INT8 True "
+        f"TPU.EVAL_INT8_SCALES <(b)'s JSON> in {export_s:.1f} s: {exported['bytes']} bytes, "
+        f"dafne:: call nodes {json.dumps(exported['ops'])}, int8 {x8['mode']} {x8['sites']} sites "
+        f"(the scales' content in export_meta.json); artifact server up in {art_start_s:.1f} s, "
+        f"live int8 server in {live_start_s:.1f} s; bodies {list(bodies)}: {n_dets} live "
+        f"detections, bit-equal lists {exact} of {len(bodies)}; request ms (client's host clock, "
+        f"one each) {json.dumps(request_ms)}; int8 launches per server "
+        f"{json.dumps({m: h['int8']['launches'] for m, h in healths.items()})} after {served} "
+        f"requests with the warm-up, {calls} site calls each [{card}]")
+    if n_dets == 0 or exact != len(bodies):
+        raise SystemExit(f"artifact int8 mode answered {exact} of {len(bodies)} bodies as live int8 "
+                         f"mode ({n_dets} detections)")
+    path_launches["export_serve_int8"] = dict(healths["artifact"]["int8"]["launches"])
+
+    rows = []
+    for name, part in (("quantize_act", "quantize"), ("int8_conv", "conv")):
+        p3, res4 = times["P3"][part], times["res4_1x1"][part]
+        by_path = {"eval_int8": (path_launches["int8_dynamic"][name]
+                                 + path_launches["int8_static"][name]),
+                   "export_serve_int8": path_launches["export_serve_int8"][name]}
+        rows.append({
+            "name": name, "route": "cuda", "source": "dafne_torch/csrc/int8_conv.cu",
+            "replaces": ("dafne_tpu/layers/quant.py:60-101 (XLA; no Pallas kernel)"
+                         if name == "quantize_act" else
+                         "dafne_tpu/layers/quant.py:112-134 (XLA int8 conv; no Pallas kernel)"),
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": 0.0,
+            **{k: p3[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+            **({"bf16_conv_ms": p3["bf16_conv_ms"]} if name == "int8_conv" else {}),
+            "at": "P3 tower 3x3 [8, 256, 128, 128] bf16, dynamic scale",
+            "res4_1x1": {k: v for k, v in res4.items() if k not in ("shape", "tops")},
+        })
+    log(f"[int8] phase 22 wall time {time.perf_counter() - t22:.1f} s ((a) {phase_a:.1f} s, "
+        f"{checked} site shapes checked) [{card}]")
+    return rows
+
+
+def int8_canary(card, cli_main, out):
+    """Phase 22 (c): phase 19's canary checkpoint, if it is still at hand,
+    evaluated through the CLI in bf16, int8 dynamic and int8 static (scales
+    from tools/calibrate_int8.py on 2 batches), under the CLI's cuDNN
+    settings; the mAPs are printed for PERF.md, not gated."""
+    from dafne_torch.engine.checkpoint import Checkpointer
+    from dafne_torch.tools import calibrate_int8
+
+    syn_dir = os.path.join(ROOT, "output", "chip_smoke_synthetic")
+    if not os.path.isfile(os.path.join(Checkpointer(syn_dir).dir, "last_checkpoint")):
+        log(f"[int8 canary] phase 19's checkpoint is not at hand under {syn_dir}: not measured")
+        return None
+    syn_recipe = os.path.join(ROOT, SYN_RECIPE)
+    syn_args = ["--config-file", syn_recipe, "DEBUG.OVERFIT_NUM_IMAGES", str(SYN_IMAGES),
+                "SOLVER.MAX_ITER", str(SYN_ITERS), "DATASETS.TEST", "('synthetic_train',)",
+                "OUTPUT_DIR", syn_dir]
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        syn_scales = os.path.join(out, "canary_scales.json")
+        calibrate_int8.main(["--config-file", syn_recipe, "--num-batches", "2", "--output",
+                             syn_scales] + syn_args[2:])
+        canary = {}
+        for mode, extra in (("bf16", []), ("int8_dynamic", ["TPU.EVAL_INT8", "True"]),
+                            ("int8_static", ["TPU.EVAL_INT8", "True", "TPU.EVAL_INT8_SCALES",
+                                             syn_scales])):
+            res = cli_main(["--eval-only"] + syn_args + extra)
+            canary[mode] = round(float(res["synthetic_train"]["mAP"]), 4)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = flags
+    drop = {m: round(canary["bf16"] - canary[m], 4) for m in ("int8_dynamic", "int8_static")}
+    log(f"[int8 canary] phase 19's checkpoint ({SYN_RECIPE}, {SYN_ITERS} steps) --eval-only on "
+        f"its {SYN_IMAGES} scenes, mAP {json.dumps(canary)}; int8 below bf16 by "
+        f"{json.dumps(drop)} (JAX's gate, tools/int8_canary.py: at most {INT8_CANARY_DROP}; a "
+        f"number for PERF.md here, not a gate of this run) [{card}]")
+    return canary
+
+
+def int8_preds(det):
+    """match_rate's {image: {classes, scores, corners}} of an eval step's
+    valid detections (numpy)."""
+    return {str(i): {k: det[k][i][det["valid"][i]] for k in ("classes", "scores", "corners")}
+            for i in range(det["valid"].shape[0])}
 
 
 # ---- 15. helpers: PNG files, a DOTA tree and Detectron2 checkpoints ----------
@@ -2918,10 +3389,12 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ("quad_nms", "assign", "deform_conv", "png_unfilter", "image_warp", "jpeg_decode")
+    sources = ("quad_nms", "assign", "deform_conv", "int8_conv", "png_unfilter", "image_warp",
+               "jpeg_decode")
     with ThreadPoolExecutor(len(sources)) as pool:  # one compiler per source, all at once
         build_logs = dict(zip(sources, pool.map(kbuild.build, sources)))
-    log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu, deform_conv.cu and g++ png_unfilter.cpp (the host "
+    log(f"[build] nvcc sm_90a quad_nms.cu, assign.cu, deform_conv.cu, int8_conv.cu and g++ "
+        f"png_unfilter.cpp (the host "
         f"unfilter of phase 15), image_warp.cpp (the host warps of phase 16) and "
         f"jpeg_decode.cpp (the host JPEG decoder of phase 19) in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4612,6 +5085,10 @@ def main() -> int:
     phase(21, "export and artifact serving")
     export_launches, export_op_ms = phase_export(card, bias_minus_2_checkpoint)
 
+    # ---- 22. int8 eval -------------------------------------------------------
+    phase(22, "int8 eval")
+    int8_rows = phase_int8(card, cli_main)
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
@@ -4682,6 +5159,7 @@ def main() -> int:
            **deform[part]}
           for name, part in (("deform_im2col", "forward"),
                              ("deform_im2col_backward", "backward"))),
+        *int8_rows,
     ]
     phase(None, "report")
     log(f"[phases] wall seconds per phase (host clock; 0 is the imports) "

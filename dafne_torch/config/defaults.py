@@ -211,8 +211,12 @@ def build_defaults() -> CfgNode:
     t.TTA_DEVICE_AUG = True  # separable TTA copies rendered on the device;
     # the others (arbitrary angles), and every copy with False, render on
     # the host (data/image_warp.py)
-    t.EVAL_INT8 = False  # w8a8 eval convs: True is not ported and raises
-    t.EVAL_INT8_SCALES = ""  # calibrated activation scales (with EVAL_INT8)
-    t.EVAL_INT8_MIN_CHANNELS = 0  # smallest quantized conv width (with EVAL_INT8)
+    t.EVAL_INT8 = False  # w8a8 eval convs (layers/quant.py): the int8 kernels
+    # of csrc/int8_conv.cu on the card
+    t.EVAL_INT8_SCALES = ""  # calibrated activation scales (with EVAL_INT8):
+    # a JSON of tools/calibrate_int8.py, read when the eval step is built;
+    # "" = dynamic per-image scales
+    t.EVAL_INT8_MIN_CHANNELS = 0  # smallest quantized conv width (with
+    # EVAL_INT8); 0 = 256 with dynamic scales, 64 with a scales JSON
 
     return _C

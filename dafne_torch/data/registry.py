@@ -32,12 +32,14 @@ class _Catalog:
             self._sized.add(name)
 
     def get(self, name: str, limit: Optional[int] = None) -> List[dict]:
-        """The records of `name`; at least the first `limit` of them."""
+        """The records of `name`; at least the first `limit` of them (all of
+        them for a `limit` of None or below 1: DEBUG.OVERFIT_NUM_IMAGES -1
+        is off)."""
         if name not in self._loaders:
             raise KeyError(
                 f"Dataset '{name}' is not registered. Known: {sorted(self._loaders)[:20]}..."
             )
-        if limit and name in self._sized:
+        if limit is not None and limit > 0 and name in self._sized:
             return self._loaders[name](limit)
         return self._loaders[name]()
 

@@ -2,8 +2,12 @@
 
 Counterpart of ``dafne_tpu/engine/trainer.py::make_eval_step``: the model
 forward, then ``decode_detections``.  ``EvalProgram`` is that body as a
-module, which ``tools/export_model.py`` exports whole.  int8 convs
-(``TPU.EVAL_INT8``) are not ported: the step raises when the key is set.
+module, which ``tools/export_model.py`` exports whole.  With
+``TPU.EVAL_INT8`` the program's model is a copy whose eligible convs run
+in int8 (``layers/quant.py::quantized_eval_model``; the scales JSON of
+``TPU.EVAL_INT8_SCALES`` is read when the program is built, as
+``trainer.py:372-381`` of the JAX package reads it); ``program.int8``
+records the mode, the width rule, the sites and the scales.
 """
 
 from __future__ import annotations
@@ -30,11 +34,30 @@ class EvalProgram(nn.Module):
         return decode_detections(self.model(images), self.spec, scale_xy)
 
 
-def eval_program(model, cfg) -> EvalProgram:
-    """The eval step's body for `model` and `cfg` (TPU.EVAL_INT8 raises)."""
-    if cfg.TPU.EVAL_INT8:
-        raise NotImplementedError("TPU.EVAL_INT8 (w8a8 eval convs) is not ported")
-    return EvalProgram(model, DecodeSpec.from_config(cfg))
+def eval_program(model, cfg, quantize_weights: bool = True) -> EvalProgram:
+    """The eval step's body for `model` and `cfg`.  Under TPU.EVAL_INT8 the
+    weights of the int8 sites are quantized now, or, with
+    `quantize_weights` False (a program whose weights are its inputs), at
+    each call."""
+    from dafne_torch.layers import quant  # model code: not for an artifact's server
+
+    settings = quant.int8_settings(cfg)
+    qmodel = quant.quantized_eval_model(model, enabled=settings["enabled"],
+                                        min_channels=settings["min_channels"],
+                                        act_scales=settings["scales"],
+                                        quantize_weights=quantize_weights)
+    program = EvalProgram(qmodel, DecodeSpec.from_config(cfg))
+    sites = quant.int8_sites(qmodel)
+    program.int8 = {
+        "mode": ("off" if not settings["enabled"]
+                 else "static" if settings["scales"] else "dynamic"),
+        "min_channels": (quant.resolve_min_channels(settings["min_channels"], settings["scales"])
+                         if settings["enabled"] else None),
+        "sites": len(sites),
+        "static_sites": sum(m == "static" for m in sites.values()),
+        "scales": settings["scales"],
+    }
+    return program
 
 
 def make_eval_step(model, cfg, image_hw: Tuple[int, int]) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -42,7 +65,8 @@ def make_eval_step(model, cfg, image_hw: Tuple[int, int]) -> Callable[..., Dict[
 
     Images are raw pixels on the model's device, H x W = `image_hw`.  The
     step returns the dict of ``decode_detections``: [B, POST_NMS_TOPK_TEST]
-    corners, hboxes, scores, classes, centerness, locations and valid."""
+    corners, hboxes, scores, classes, centerness, locations and valid.
+    ``eval_step.program`` is its ``EvalProgram``."""
     program = eval_program(model, cfg)
     image_hw = tuple(image_hw)
 
@@ -53,4 +77,5 @@ def make_eval_step(model, cfg, image_hw: Tuple[int, int]) -> Callable[..., Dict[
                              f"got {tuple(images.shape)}")
         return program(images, scale_xy)
 
+    eval_step.program = program
     return eval_step

@@ -26,6 +26,10 @@ that loads an exported program imports this module first.
                               ``register_autograd`` through
   dafne::deform_im2col_backward  its backward: the CUDA kernel, or on the
                               CPU the plain version's own autograd
+  dafne::quantize_act         int8 eval: an activation's int8 NHWC copy and
+                              its per-image scales (``quant.py``)
+  dafne::int8_conv            int8 eval: the implicit-GEMM s8 conv with its
+                              dequantize (``quant.py``)
 
 K3 (``assign.py``) is on the train path only and stays a direct call.
 """
@@ -33,13 +37,14 @@ K3 (``assign.py``) is on the train path only and stays a direct call.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from dafne_torch.ops.kernels import deform_conv as D
 from dafne_torch.ops.kernels import quad_nms as Q
+from dafne_torch.ops.kernels import quant as QT
 
 
 def _bits_fake(corners, classes, iou_threshold, eps):
@@ -171,3 +176,46 @@ def _deform_backward(ctx, grad_cols):
 
 
 deform_im2col.register_autograd(_deform_backward, setup_context=_deform_setup)
+
+
+# ---- int8 eval ---------------------------------------------------------------
+
+@torch.library.custom_op("dafne::quantize_act", mutates_args=(), device_types="cpu")
+def quantize_act(x: Tensor, static_scale: float) -> Tuple[Tensor, Tensor]:
+    """(x_q [N, H, W, C] int8, scale [N] f32) of x [N, C, H, W]: per-image
+    dynamic scales when `static_scale` <= 0, else that scale."""
+    return QT.quantize_act_plain(x, static_scale)
+
+
+@quantize_act.register_kernel("cuda")
+def _(x, static_scale):
+    return QT.quantize_act_cuda(x.contiguous(), static_scale)
+
+
+@quantize_act.register_fake
+def _(x, static_scale):
+    n, c, h, w = x.shape
+    return x.new_empty((n, h, w, c), dtype=torch.int8), x.new_empty((n,), dtype=torch.float32)
+
+
+@torch.library.custom_op("dafne::int8_conv", mutates_args=(), device_types="cpu")
+def int8_conv(xq: Tensor, xs: Tensor, wq: Tensor, ws: Tensor, bias: Optional[Tensor],
+              stride: List[int], padding: List[int], dilation: List[int],
+              out_dtype: torch.dtype) -> Tensor:
+    """y [N, O, Ho, Wo] in `out_dtype` of x_q [N, H, W, C] int8 (scales
+    [N]) and w_q [O, KH, KW, C] int8 (scales [O]), plus bias [O] f32."""
+    return QT.int8_conv_plain(xq, xs, wq, ws, bias, stride, padding, dilation, out_dtype)
+
+
+@int8_conv.register_kernel("cuda")
+def _(xq, xs, wq, ws, bias, stride, padding, dilation, out_dtype):
+    return QT.int8_conv_cuda(xq.contiguous(), xs.contiguous(), wq.contiguous(), ws.contiguous(),
+                             _contiguous(bias), stride, padding, dilation, out_dtype)
+
+
+@int8_conv.register_fake
+def _(xq, xs, wq, ws, bias, stride, padding, dilation, out_dtype):
+    n, h, w, _ = xq.shape
+    o, kh, kw = wq.shape[:3]
+    ho, wo = QT.conv_out_hw(h, w, kh, kw, stride, padding, dilation)
+    return xq.new_empty((n, o, ho, wo), dtype=out_dtype)

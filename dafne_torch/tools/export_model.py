@@ -18,13 +18,19 @@ nodes of the graph.  OUT/export_meta.json holds the canvas (``pad_hw``),
 ``output_keys``, the eval preprocessing recipe
 (``data/mapper.py::eval_preprocess_meta``), the device the program was
 exported for and the torch version (in place of JAX's ``platforms``), and
-the ``dafne::`` call nodes counted.  B is TPU.EVAL_BATCH unless ``--batch``
-is given.  The export runs on the card unless ``--cpu`` is given; the
+the ``dafne::`` call nodes counted, and ``int8``: the int8 mode of
+``TPU.EVAL_INT8`` ("off", "dynamic" or "static"), the minimum width, the
+number of int8 sites and the scales table's content (not its path), so
+that the artifact needs no file beside it.  B is TPU.EVAL_BATCH unless
+``--batch`` is given.  The export runs on the card unless ``--cpu`` is given; the
 program runs on the device it was exported for.
 
 ``--weights-as-args`` exports a program whose parameters and buffers are
 its first input, a dict by name (``torch.func.functional_call``), and
-saves no weights.  ``--check`` loads an artifact with only ``torch`` and
+saves no weights.  Under ``TPU.EVAL_INT8`` the int8 sites' weights are
+then inputs in float32 too, so their per-channel quantization runs inside
+the program at each call; a program with its own weights holds them
+quantized once, at export.  ``--check`` loads an artifact with only ``torch`` and
 the op library imported, replays zeros through it (not for a
 weights-as-args artifact, which needs its weights) and prints the output
 shapes.  ``python -m dafne_torch.tools.serve --artifact OUT/model.pt2``
@@ -84,7 +90,7 @@ def build_exported(cfg, batch: int, weights_as_args: bool, device: str = "cuda")
     model, step = restore_for_inference(cfg, device)
     dev = next(model.parameters()).device
     pad_hw = pad_target_hw(cfg, train=False)
-    program = eval_program(model, cfg).eval()
+    program = eval_program(model, cfg, quantize_weights=not weights_as_args).eval()
     images = torch.zeros((batch, *pad_hw, 3), dtype=torch.uint8, device=dev)
     scale_xy = torch.ones((batch, 2), dtype=torch.float32, device=dev)
     with torch.no_grad():
@@ -103,6 +109,7 @@ def build_exported(cfg, batch: int, weights_as_args: bool, device: str = "cuda")
         "torch": torch.__version__,
         "output_keys": OUTPUT_KEYS,
         "ops": dafne_calls(exported),
+        "int8": program.int8,
         **eval_preprocess_meta(cfg),
     }
     return exported, meta
@@ -118,8 +125,11 @@ def check(path: str) -> int:
     meta_path = os.path.join(os.path.dirname(os.path.abspath(path)), "export_meta.json")
     with open(meta_path) as f:
         meta = json.load(f)
+    int8 = meta.get("int8") or {"mode": "off"}
     print(f"loaded in {time.perf_counter() - t0:.3f} s: exported for {meta['device']} with torch "
-          f"{meta['torch']}; dafne:: call nodes {dafne_calls(exported)}")
+          f"{meta['torch']}; dafne:: call nodes {dafne_calls(exported)}; int8 {int8['mode']}"
+          + (f" ({int8['sites']} sites, min {int8['min_channels']} channels)"
+             if int8["mode"] != "off" else ""))
     if meta.get("weights_as_args"):
         print("weights-as-args artifact: the zero replay is skipped (it needs the weights)")
         return 0

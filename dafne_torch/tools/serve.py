@@ -21,7 +21,10 @@ shapes is not billed to the first request.
 API, as ``tools/serve.py``:
   GET  /healthz -> 200 {"ok": true, "canvas": [H, W], "batch": 1, ...,
                    "requests": detect calls answered (the warm-up's too),
-                   "launches": the NMS kernels' launches in this process}
+                   "launches": the NMS kernels' launches in this process,
+                   "int8": {"mode": "off", "dynamic" or "static" (TPU.EVAL_INT8
+                   in live mode, the export's in artifact mode), "min_channels",
+                   "sites", "launches": the int8 kernels' launches}}
                    (503 with "ok": false and "untrained_weights": true when
                    no checkpoint and no MODEL.WEIGHTS were loaded)
   POST /detect  body: the .npy bytes of an H x W x 3 image in the recipe's
@@ -115,8 +118,10 @@ class DetectorService:
         from dafne_torch.engine.predictor import Predictor
 
         model, step = restore_for_inference(cfg, device)
-        meta = dict(eval_preprocess_meta(cfg), checkpoint_step=step, weights=cfg.MODEL.WEIGHTS)
-        return cls(Predictor(model, cfg, batch=1), meta).warm_up()
+        predictor = Predictor(model, cfg, batch=1)
+        meta = dict(eval_preprocess_meta(cfg), checkpoint_step=step, weights=cfg.MODEL.WEIGHTS,
+                    int8=predictor.step.program.int8)
+        return cls(predictor, meta).warm_up()
 
     @classmethod
     def from_artifact(cls, path: str, device: str = "cuda") -> "DetectorService":
@@ -198,8 +203,9 @@ def make_server(service: DetectorService, host: str = "127.0.0.1", port: int = 8
         def do_GET(self):
             if self.path != "/healthz":
                 return self._json(404, {"error": "unknown path"})
-            from dafne_torch.ops.kernels import quad_nms
+            from dafne_torch.ops.kernels import quad_nms, quant
 
+            int8 = service.meta.get("int8") or {"mode": "off"}
             self._json(503 if service.untrained else 200, {
                 "ok": not service.untrained,
                 "untrained_weights": service.untrained,
@@ -210,6 +216,10 @@ def make_server(service: DetectorService, host: str = "127.0.0.1", port: int = 8
                 "requests": service.requests,
                 "launches": {"suppression_matrix": quad_nms.suppression_bits_cuda.launches,
                              "greedy_keep": quad_nms.greedy_keep_bits_cuda.launches},
+                "int8": {"mode": int8["mode"], "min_channels": int8.get("min_channels"),
+                         "sites": int8.get("sites", 0),
+                         "launches": {"quantize_act": quant.quantize_act_cuda.launches,
+                                      "int8_conv": quant.int8_conv_cuda.launches}},
             })
 
         def do_POST(self):

@@ -6,7 +6,9 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 from dafne_tpu.config import get_cfg as jax_get_cfg
 from dafne_tpu.ops.postprocess import DecodeSpec as JaxDecodeSpec
@@ -114,7 +116,8 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.parallel.mesh", "dafne_torch.layers.deform_conv",
               "dafne_torch.ops.kernels.deform_conv", "dafne_torch.models.backbones",
               "dafne_torch.ops.kernels.library", "dafne_torch.tools.export_model",
-              "dafne_torch.utils.notify"):
+              "dafne_torch.utils.notify", "dafne_torch.layers.quant",
+              "dafne_torch.ops.kernels.quant", "dafne_torch.tools.calibrate_int8"):
         assert m in modules
 
 
@@ -138,14 +141,26 @@ def test_data_from_disk_keys_have_the_jax_defaults():
 
 
 def test_eval_int8_raises():
+    """TPU.EVAL_INT8 no longer raises: the int8 eval step builds and runs
+    (tests/test_torch_int8_eval.py holds it against JAX).  What still
+    raises is a missing EVAL_INT8_SCALES file, when the step is built."""
     cfg = get_cfg()
     cfg.merge_from_list(["MODEL.RESNETS.STEM_OUT_CHANNELS", "8", "MODEL.RESNETS.WIDTH_PER_GROUP",
                          "4", "MODEL.RESNETS.RES2_OUT_CHANNELS", "16", "MODEL.FPN.OUT_CHANNELS",
-                         "16", "TPU.COMPUTE_DTYPE", "float32"])
+                         "64", "TPU.COMPUTE_DTYPE", "float32"])
     model = build_model(cfg, device="cpu")
     make_eval_step(model, cfg, (128, 128))  # bf16/f32 scoring builds
     cfg.TPU.EVAL_INT8 = True
-    with pytest.raises(NotImplementedError, match="EVAL_INT8"):
+    step = make_eval_step(model, cfg, (128, 128))
+    assert step.program.int8["mode"] == "dynamic" and step.program.int8["min_channels"] == 256
+    cfg.TPU.EVAL_INT8_MIN_CHANNELS = 64
+    step = make_eval_step(model, cfg, (128, 128))
+    assert step.program.int8["sites"] > 0
+    images = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, 128, 128, 3)))
+    out = step(images.float())
+    assert set(out) >= {"corners", "scores", "valid"} and bool(torch.isfinite(out["scores"]).all())
+    cfg.TPU.EVAL_INT8_SCALES = os.path.join(ROOT, "output", "no_such_scales.json")
+    with pytest.raises(FileNotFoundError):
         make_eval_step(model, cfg, (128, 128))
 
 

@@ -149,3 +149,17 @@ def test_recipe_loader_batch_equals_jax():
     finally:
         ours.close()
         theirs.close()
+
+
+@pytest.mark.parametrize("name", ["synthetic_val", "synthetic_gen_val"])
+def test_overfit_off_keeps_every_record(name):
+    """DEBUG.OVERFIT_NUM_IMAGES -1 (the default: off) gives a generator set
+    every record, as JAX's registry does (the port's once gave none)."""
+    jcfg, cfg = jax_get_cfg(), get_cfg()
+    assert cfg.DEBUG.OVERFIT_NUM_IMAGES == jcfg.DEBUG.OVERFIT_NUM_IMAGES == -1
+    jax_register_all(jcfg)
+    register_all_datasets(cfg)
+    want = jax_get_dataset(name, jcfg)
+    got = get_dataset(name, cfg)
+    assert len(got) == len(want) > 0
+    assert [r["image_id"] for r in got] == [r["image_id"] for r in want]

@@ -152,10 +152,10 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      (a) one NCCL rank, DIST_STEPS steps at batch 8 and do_test at batch
      4, its per-step losses against a plain do_train in this process (bit
      for bit, else within DIST_LOSS_RTOL, the difference printed); (b) two
-     gloo ranks on the one card, batch 4 each: losses and final parameters
-     against (a)'s within DIST_LOSS_RTOL and DIST_PARAM_ATOL, metrics.json
-     and the evaluator's files written once, its detections against (a)'s
-     printed; then two gloo ranks --eval-only on (a)'s checkpoint at
+     gloo ranks on the one card, batch 4 each, started beside (a): losses
+     and final parameters against (a)'s within DIST_LOSS_RTOL and
+     DIST_PARAM_ATOL, metrics.json and the evaluator's files written once,
+     its detections against (a)'s printed; then two gloo ranks --eval-only on (a)'s checkpoint at
      global batch 8, held to (a)'s do_test (>= 99% of the detections
      matched within 1e-4 and 1e-2, mAP within 0.1); (c) (a)'s checkpoint resumed by
      two ranks to DIST_RESUME_TO (beside those --eval-only ranks), each
@@ -237,11 +237,26 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      free-running (printed: int8's own noise) and with the card's int8
      sites fed the CPU's inputs call for call (>= 99% of detections
      matched both ways); (c) phase 19's canary checkpoint evaluated in bf16,
-     int8 dynamic and int8 static (mAPs printed, not a gate); (d) the static
+     int8 dynamic and int8 static by int8_canary.evaluate (mAPs printed,
+     not a gate), and through tools/calibrate_int8.py and the CLI's
+     --eval-only TPU.EVAL_INT8 True in both modes (scales and mAPs held
+     equal to evaluate's); (d) the static
      int8 eval step exported at batch 1 and served from the artifact beside
      live int8 mode, both as processes: the 1024^2 PNG and a JPEG answered
      with bit-equal detection lists, /healthz's int8 launches.  Launches
      under launches_by_path ["eval_int8"] and ["export_serve_int8"].
+ 23. the trained-weight gates, short (phase_gates): each gate tool's record
+     function (dafne_torch/tools/int8_canary.py, tta_canary.py and
+     gen_canary.py at 256 and 1024) at full width and a cut depth
+     (GATE_OPTS: GATE_STEPS steps on GATE_SCENES scenes, GATE_1024_STEPS at
+     1024): every field of the JAX package's record (and the port's added
+     ones) present, every mAP finite, the held-out val ids disjoint from the
+     train ids, the static calibration reading train images only, the TTA
+     copies of image 0 equal to build_tta_augs's count, and the JAX
+     package's four gate records (JAX_GATE_RECORDS) byte-identical before
+     and after; the gates' thresholds are not held at this depth.  Launches
+     under launches_by_path ["gate_int8"], ["gate_tta"], ["gate_gen256"]
+     and ["gate_gen1024"].
 
 A failing phase prints "chip_smoke: phase <n> <name> failed: <message>"
 on stdout before the nonzero exit.
@@ -252,7 +267,8 @@ The line before the last holds one JSON object with every kernel's numbers
 artifact server, and their "op_ms" through torch.ops.dafne, K3's
 from phases 7, 14, 15's and 16's CLI runs, 17, 18, 19 and 20, K2's from
 phase 11's replay, the deformable sampler's from phase 20's CLI runs, the
-int8 kernels' from phase 22's eval steps and artifact server;
+int8 kernels' from phase 22's eval steps and artifact server, and K1's,
+greedy's, K3's and the int8 kernels' from phase 23's gates;
 "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
@@ -1024,43 +1040,49 @@ def phase_distributed(card):
     # into other kept boxes, so only equal per-forward batches can give the
     # same detections
     procs = launch_ranks(args + ["TPU.EVAL_BATCH", str(BATCH // 2)], dir_a, 1, collectives="")
-    register_all_datasets(cfg)
-    records = get_dataset(train_set, cfg)
-    pcfg = copy.deepcopy(cfg)
-    pcfg.merge_from_list(["OUTPUT_DIR", dir_plain])
-    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
-    # the CLI process's defaults, so that cuDNN picks the same algorithms
-    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
-    pmodel = build_model(pcfg, device="cuda", generator=torch.Generator().manual_seed(7))
-    pstats = {}
-    do_train(pcfg, pmodel, records, stats=pstats)
-    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = flags
-    del pmodel
-    (rc, text), = wait_ranks(procs)
-    if rc != 0:
-        raise SystemExit(f"(a) one NCCL rank exited {rc}: ...{text[-3000:]}")
-    (sa,) = [rank_summary(text)]
-    a_s = time.perf_counter() - t0
-    (plain_steps,) = pstats["steps"].values()
-    plain_loss = plain_steps["loss"]
-    loss_diff = [abs(x - y) for x, y in zip(sa["loss"], plain_loss)]
-    bit_equal = sa["loss"] == plain_loss
-    log(f"[dist a] one rank, NCCL (DAFNE_NUM_PROCESSES=1): {DIST_STEPS} steps at batch {BATCH}, "
-        f"then do_test on {N_DIST_SCENES} scenes, in {a_s:.1f} s wall beside a plain do_train "
-        f"in this process; per-step total loss {json.dumps(sa['loss'])}; plain do_train "
-        f"{json.dumps(plain_loss)}; bit for bit equal: {bit_equal}, max |diff| "
-        f"{max(loss_diff):.3g} at step {int(np.argmax(loss_diff)) + 1} [{card}]")
-    if sa["world"] != 1 or sa["backend"] != "nccl":
-        raise SystemExit(f"(a) did not run as one NCCL rank: {sa}")
-    if len(sa["loss"]) != DIST_STEPS or not all(np.isfinite(sa["loss"])):
-        raise SystemExit(f"(a) losses missing or not finite: {sa['loss']}")
-    if not bit_equal and max(loss_diff) > DIST_LOSS_RTOL * max(abs(x) for x in plain_loss):
-        raise SystemExit("(a) one NCCL rank's losses differ from a plain do_train's")
-
-    # (b) two ranks on the one card, gloo, batch 4 each
+    # (b) two ranks on the one card, gloo, batch 4 each, started beside (a):
+    # it reads nothing of (a) until both have ended
     dir_b = os.path.join(root, "two_ranks")
-    t0 = time.perf_counter()
-    sb = run_ranks(args, dir_b, 2, "(b) two gloo ranks")
+    procs_b = launch_ranks(args, dir_b, 2)
+    try:
+        register_all_datasets(cfg)
+        records = get_dataset(train_set, cfg)
+        pcfg = copy.deepcopy(cfg)
+        pcfg.merge_from_list(["OUTPUT_DIR", dir_plain])
+        flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+        # the CLI process's defaults, so that cuDNN picks the same algorithms
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
+        pmodel = build_model(pcfg, device="cuda", generator=torch.Generator().manual_seed(7))
+        pstats = {}
+        do_train(pcfg, pmodel, records, stats=pstats)
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = flags
+        del pmodel
+        (rc, text), = wait_ranks(procs)
+        if rc != 0:
+            raise SystemExit(f"(a) one NCCL rank exited {rc}: ...{text[-3000:]}")
+        (sa,) = [rank_summary(text)]
+        a_s = time.perf_counter() - t0
+        (plain_steps,) = pstats["steps"].values()
+        plain_loss = plain_steps["loss"]
+        loss_diff = [abs(x - y) for x, y in zip(sa["loss"], plain_loss)]
+        bit_equal = sa["loss"] == plain_loss
+        log(f"[dist a] one rank, NCCL (DAFNE_NUM_PROCESSES=1): {DIST_STEPS} steps at batch "
+            f"{BATCH}, then do_test on {N_DIST_SCENES} scenes, in {a_s:.1f} s wall beside a plain "
+            f"do_train in this process and (b)'s ranks; per-step total loss "
+            f"{json.dumps(sa['loss'])}; plain do_train "
+            f"{json.dumps(plain_loss)}; bit for bit equal: {bit_equal}, max |diff| "
+            f"{max(loss_diff):.3g} at step {int(np.argmax(loss_diff)) + 1} [{card}]")
+        if sa["world"] != 1 or sa["backend"] != "nccl":
+            raise SystemExit(f"(a) did not run as one NCCL rank: {sa}")
+        if len(sa["loss"]) != DIST_STEPS or not all(np.isfinite(sa["loss"])):
+            raise SystemExit(f"(a) losses missing or not finite: {sa['loss']}")
+        if not bit_equal and max(loss_diff) > DIST_LOSS_RTOL * max(abs(x) for x in plain_loss):
+            raise SystemExit("(a) one NCCL rank's losses differ from a plain do_train's")
+    except BaseException:
+        wait_ranks(procs + procs_b, timeout=0)  # kills what still runs
+        raise
+
+    sb = rank_results(wait_ranks(procs_b), 2, "(b) two gloo ranks")
     b_s = time.perf_counter() - t0
     if [s["backend"] for s in sb] != ["gloo", "gloo"] or sb[0]["loss"] != sb[1]["loss"]:
         raise SystemExit(f"(b) not two gloo ranks with the same global losses: {sb}")
@@ -1104,7 +1126,8 @@ def phase_distributed(card):
     per_rank = [{"rank": s["rank"], "step_ms_median": round(statistics.median(s["step_ms"][1:]), 2),
                  "first_step_ms": round(s["step_ms"][0], 1),
                  "peak_memory_gib": s["peak_memory_gib"]} for s in [sa] + sb]
-    log(f"[dist b] two ranks on the one card, gloo (batch {BATCH // 2} each): {b_s:.1f} s wall; "
+    log(f"[dist b] two ranks on the one card, gloo (batch {BATCH // 2} each): {b_s:.1f} s wall "
+        f"from (a)'s start, beside it; "
         f"per-step total loss {json.dumps(sb[0]['loss'])}; relative to (a) max "
         f"{max(rel):.3g} (tolerance {DIST_LOSS_RTOL}); final params max |diff| {p_err:.3g} "
         f"(tolerance {DIST_PARAM_ATOL}; the largest move from the initial weights in (a) "
@@ -1486,7 +1509,6 @@ INT8_SEED = 22  # the torch seed of phase 22's model
 INT8_STEPS = 3  # timed eval steps of each program in (b)
 INT8_CALIB_BATCHES = 2  # calibration batches of 8 on the card
 INT8_NARROW_MIN = 32  # EVAL_INT8_MIN_CHANNELS of the narrow card-against-CPU check
-INT8_CANARY_DROP = 1.0  # JAX's int8 canary gate: int8 mAP within 1 point of bf16
 INT8_BODIES = ("scene0.png", "text_1.jpg")  # request bodies of (d)
 
 
@@ -1603,7 +1625,7 @@ def int8_times(x, mod, card, what):
     return {"quantize": q, "conv": conv}
 
 
-def phase_int8(card, cli_main):
+def phase_int8(card):
     """Phase 22: int8 eval (TPU.EVAL_INT8) on the DOTA-1.0 1024 recipe at full
     width.  (a) every distinct quantized site of one forward, dynamic (auto
     width 256) and static (auto width 64), its kernels bit-equal to the
@@ -1613,8 +1635,9 @@ def phase_int8(card, cli_main):
     and forward ms, sites, launches (the site calls of a forward times the
     forwards), peak memory; the narrow model on the card against the CPU;
     (c) the canary's checkpoint of phase 19 in bf16, int8 dynamic and int8
-    static (``int8_canary``, in this process while (d)'s export and live
-    server start); (d) the static int8 eval step exported at batch 1 and
+    static (``int8_canary.evaluate``, then ``tools/calibrate_int8.py`` and
+    the CLI's int8 eval, in this process while (d)'s export and live server
+    start); (d) the static int8 eval step exported at batch 1 and
     served from the artifact beside live int8 mode, answer lists bit-equal.
     Returns the two kernels' rows of the kernels line."""
     from dafne_torch.config import get_cfg
@@ -1793,7 +1816,7 @@ def phase_int8(card, cli_main):
                                  "export_model (int8 static)", 900)
             art = None
             try:
-                int8_canary(card, cli_main, out)  # (c)
+                int8_canary_on_phase19(card, out)  # (c)
                 stdout, export_s = export.result()
                 exported = json.loads(stdout.strip().splitlines()[-1])
                 art = pool.submit(start_server, ["--artifact", exported["artifact"]],
@@ -1870,42 +1893,66 @@ def phase_int8(card, cli_main):
     return rows
 
 
-def int8_canary(card, cli_main, out):
+def int8_canary_on_phase19(card, out):
     """Phase 22 (c): phase 19's canary checkpoint, if it is still at hand,
-    evaluated through the CLI in bf16, int8 dynamic and int8 static (scales
-    from tools/calibrate_int8.py on 2 batches), under the CLI's cuDNN
-    settings; the mAPs are printed for PERF.md, not gated."""
+    through ``int8_canary.evaluate`` (bf16, int8 dynamic and int8 static,
+    scales from 2 batches of its scenes), then through the entry points a
+    user calls: ``tools/calibrate_int8.py`` on the same 2 batches, its
+    scales held equal to evaluate's, and the CLI's --eval-only with
+    TPU.EVAL_INT8 in both modes (static on the tool's scales), each mAP held
+    equal to evaluate's.  All under the CLI's cuDNN settings.  The mAPs are
+    printed for PERF.md; their drop under bf16 is not gated."""
+    from dafne_torch.data import register_all_datasets
     from dafne_torch.engine.checkpoint import Checkpointer
-    from dafne_torch.tools import calibrate_int8
+    from dafne_torch.layers.quant import load_act_scales
+    from dafne_torch.models import build_model
+    from dafne_torch.tools import calibrate_int8, canary, int8_canary
+    from dafne_torch.tools.train import main as cli_main
 
     syn_dir = os.path.join(ROOT, "output", "chip_smoke_synthetic")
     if not os.path.isfile(os.path.join(Checkpointer(syn_dir).dir, "last_checkpoint")):
         log(f"[int8 canary] phase 19's checkpoint is not at hand under {syn_dir}: not measured")
         return None
-    syn_recipe = os.path.join(ROOT, SYN_RECIPE)
-    syn_args = ["--config-file", syn_recipe, "DEBUG.OVERFIT_NUM_IMAGES", str(SYN_IMAGES),
-                "SOLVER.MAX_ITER", str(SYN_ITERS), "DATASETS.TEST", "('synthetic_train',)",
-                "OUTPUT_DIR", syn_dir]
-    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
-    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
-    try:
-        syn_scales = os.path.join(out, "canary_scales.json")
-        calibrate_int8.main(["--config-file", syn_recipe, "--num-batches", "2", "--output",
-                             syn_scales] + syn_args[2:])
-        canary = {}
-        for mode, extra in (("bf16", []), ("int8_dynamic", ["TPU.EVAL_INT8", "True"]),
+    t0 = time.perf_counter()
+    cfg = int8_canary.recipe(["SOLVER.MAX_ITER", str(SYN_ITERS), "OUTPUT_DIR", syn_dir])
+    register_all_datasets(cfg)
+    syn_args = ["--config-file", os.path.join(ROOT, SYN_RECIPE), "DEBUG.OVERFIT_NUM_IMAGES",
+                str(SYN_IMAGES), "SOLVER.MAX_ITER", str(SYN_ITERS), "DATASETS.TEST",
+                "('synthetic_train',)", "OUTPUT_DIR", syn_dir]
+    tool_scales = os.path.join(out, "canary_scales.json")
+    with canary.cli_backend_flags():
+        model = build_model(cfg, device="cuda")
+        Checkpointer(syn_dir).restore(model)
+        ev = int8_canary.evaluate(cfg, model.eval(), os.path.join(out, "canary"))
+        del model
+        calibrate_int8.main(["--num-batches", str(int8_canary.CALIB_BATCHES), "--output",
+                             tool_scales] + syn_args)
+        cli = {}
+        for mode, extra in (("int8_dynamic", ["TPU.EVAL_INT8", "True"]),
                             ("int8_static", ["TPU.EVAL_INT8", "True", "TPU.EVAL_INT8_SCALES",
-                                             syn_scales])):
-            res = cli_main(["--eval-only"] + syn_args + extra)
-            canary[mode] = round(float(res["synthetic_train"]["mAP"]), 4)
-    finally:
-        torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = flags
-    drop = {m: round(canary["bf16"] - canary[m], 4) for m in ("int8_dynamic", "int8_static")}
-    log(f"[int8 canary] phase 19's checkpoint ({SYN_RECIPE}, {SYN_ITERS} steps) --eval-only on "
-        f"its {SYN_IMAGES} scenes, mAP {json.dumps(canary)}; int8 below bf16 by "
-        f"{json.dumps(drop)} (JAX's gate, tools/int8_canary.py: at most {INT8_CANARY_DROP}; a "
-        f"number for PERF.md here, not a gate of this run) [{card}]")
-    return canary
+                                             tool_scales])):
+            cli[mode] = float(cli_main(["--eval-only"] + syn_args + extra)
+                              ["synthetic_train"]["mAP"])
+    ev_scales = load_act_scales(os.path.join(out, "canary", "int8_scales.json"))
+    if load_act_scales(tool_scales) != ev_scales:
+        raise SystemExit(f"tools/calibrate_int8.py's scales on phase 19's checkpoint differ from "
+                         f"int8_canary.evaluate's on the same {int8_canary.CALIB_BATCHES} batches")
+    canary_maps = {m: round(float(ev[k]), 4) for m, k in (
+        ("bf16", "bf16_mAP"), ("int8_dynamic", "int8_mAP"), ("int8_static", "int8_static_mAP"))}
+    if {m: round(v, 4) for m, v in cli.items()} != {m: canary_maps[m] for m in cli}:
+        raise SystemExit(f"the CLI's --eval-only int8 mAPs {cli} on phase 19's checkpoint are not "
+                         f"int8_canary.evaluate's {canary_maps}")
+    drop = {m: round(canary_maps["bf16"] - canary_maps[m], 4)
+            for m in ("int8_dynamic", "int8_static")}
+    log(f"[int8 canary] phase 19's checkpoint ({SYN_RECIPE}, {SYN_ITERS} steps) through "
+        f"int8_canary.evaluate on its {SYN_IMAGES} scenes, mAP {json.dumps(canary_maps)} "
+        f"({ev['calibrated_sites']} calibrated sites); int8 below bf16 by {json.dumps(drop)} "
+        f"(JAX's gate, tools/int8_canary.py: at most {int8_canary.MAX_DROP}; a number for "
+        f"PERF.md here, not a gate of this run); tools/calibrate_int8.py --num-batches "
+        f"{int8_canary.CALIB_BATCHES}: {len(ev_scales)} scales equal to evaluate's; CLI "
+        f"--eval-only TPU.EVAL_INT8 True, dynamic and static on the tool's scales: mAP "
+        f"{json.dumps(cli)}, equal to evaluate's; (c) in {time.perf_counter() - t0:.1f} s [{card}]")
+    return canary_maps
 
 
 def int8_preds(det):
@@ -1913,6 +1960,109 @@ def int8_preds(det):
     valid detections (numpy)."""
     return {str(i): {k: det[k][i][det["valid"][i]] for k in ("classes", "scores", "corners")}
             for i in range(det["valid"].shape[0])}
+
+
+# ---- 23. the trained-weight gates, short ------------------------------------
+
+#: the JAX package's gate records at the repo root, never written by the port
+JAX_GATE_RECORDS = ("INT8_CANARY.json", "TTA_CANARY.json", "GEN_CANARY.json",
+                    "GEN_CANARY_1024.json")
+#: what each port record adds to the JAX package's fields
+GATE_ADDED_FIELDS = ("power_limit", "torch", "seed", "checks")
+QK_NAMES = ("quantize_act", "int8_conv")  # the int8 kernels: no TTA gate path runs them
+GATE_STEPS = 20  # train steps of the canaries and of gen_canary at 256
+GATE_SCENES = 8  # DEBUG.OVERFIT_NUM_IMAGES: train (and, for gen_canary, val) scenes
+GATE_1024_STEPS = 10  # train steps of gen_canary at 1024 (its 3 bucket canvases)
+GATE_OPTS = {path: ["SOLVER.MAX_ITER", str(steps), "DEBUG.OVERFIT_NUM_IMAGES", str(GATE_SCENES)]
+             for path, steps in (("gate_int8", GATE_STEPS), ("gate_tta", GATE_STEPS),
+                                 ("gate_gen256", GATE_STEPS), ("gate_gen1024", GATE_1024_STEPS))}
+
+
+def file_digests(names):
+    """{name: SHA-256 of the file at the repo root, or None when absent}."""
+    out = {}
+    for name in names:
+        path = os.path.join(ROOT, name)
+        out[name] = (hashlib.sha256(open(path, "rb").read()).hexdigest()
+                     if os.path.isfile(path) else None)
+    return out
+
+
+def phase_gates(card):
+    """Phase 23: each gate tool's record function at full width and a cut
+    depth (GATE_OPTS), its files under output/chip_smoke_gates.  Held: the
+    fields (the JAX record's and GATE_ADDED_FIELDS), finite mAPs, val ids
+    disjoint from the train ids and the calibration on train images only
+    (gen_canary), image 0's TTA copies equal to build_tta_augs's count
+    (tta_canary), the JAX package's records unchanged.  Not held: the gates'
+    thresholds, which this depth cannot pass.  Returns {path: launches}."""
+    from dafne_torch.engine.tta import build_tta_augs
+    from dafne_torch.ops.kernels import assign as A
+    from dafne_torch.ops.kernels import quad_nms as K
+    from dafne_torch.ops.kernels import quant as QK
+    from dafne_torch.tools import gen_canary, int8_canary, tta_canary
+
+    t23 = time.perf_counter()
+    out = os.path.join(ROOT, "output", "chip_smoke_gates")
+    shutil.rmtree(out, ignore_errors=True)
+    records_before = file_digests(JAX_GATE_RECORDS)
+    if None in records_before.values():
+        raise SystemExit(f"a JAX package record is missing: {records_before}")
+    gates = {  # path: (the JAX package's record, the record function)
+        "gate_int8": ("INT8_CANARY.json", lambda o, st: int8_canary.run(o, "cuda", st)),
+        "gate_tta": ("TTA_CANARY.json", lambda o, st: tta_canary.run(o, "cuda", st)),
+        "gate_gen256": ("GEN_CANARY.json", lambda o, st: gen_canary.run(256, o, "cuda", None, st)),
+        "gate_gen1024": ("GEN_CANARY_1024.json",
+                         lambda o, st: gen_canary.run(1024, o, "cuda", None, st)),
+    }
+    launches = {}
+    for path, (jax_record, fn) in gates.items():
+        K.reset_launch_counts()
+        A.reset_launch_counts()
+        QK.reset_launch_counts()
+        st = {}
+        t0 = time.perf_counter()
+        record = fn(GATE_OPTS[path] + ["OUTPUT_DIR", os.path.join(out, path)], st)
+        wall = time.perf_counter() - t0
+        launches[path] = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                          "greedy_keep": K.greedy_keep_bits_cuda.launches,
+                          "assign_argmin": A.assign_argmin_cuda.launches,
+                          "quantize_act": QK.quantize_act_cuda.launches,
+                          "int8_conv": QK.int8_conv_cuda.launches}
+        ran = [k for k in launches[path] if path != "gate_tta" or k not in QK_NAMES]
+        if not all(launches[path][k] for k in ran):
+            raise SystemExit(f"{path}: a kernel of its path never launched: {launches[path]}")
+        with open(os.path.join(ROOT, jax_record)) as f:
+            fields = list(json.load(f)) + list(GATE_ADDED_FIELDS)
+        missing = [k for k in fields if k not in record]
+        maps = {k: v for k, v in record.items() if k.endswith("mAP")}
+        if missing or not maps or not all(np.isfinite(v) for v in maps.values()):
+            raise SystemExit(f"{path}: fields missing {missing}, mAPs {maps}: {record}")
+        if record["device"] != torch.cuda.get_device_name(0) or not record["power_limit"]:
+            raise SystemExit(f"{path}: the record names no card: {record}")
+        if path.startswith("gate_gen"):
+            train, val, calib = set(st["train_ids"]), set(st["val_ids"]), set(st["calib_ids"])
+            if train & val or not calib or not calib <= train:
+                raise SystemExit(f"{path}: val ids shared with train {sorted(train & val)}, "
+                                 f"calibration images {sorted(calib)} not all train images")
+        if path == "gate_tta":
+            (h, w), copies = st["img0_hw"], st["img0"]["copies"]
+            want = len(build_tta_augs(tta_canary.recipe(GATE_OPTS[path]), w, h))
+            if not record["tta_augs"] == copies == want:
+                raise SystemExit(f"gate_tta: tta_augs {record['tta_augs']}, image 0's copies "
+                                 f"{copies}, build_tta_augs {want}")
+        log(f"[gates {path}] {record['iters']} steps in {wall:.1f} s: record "
+            f"{json.dumps(record)}; launches {json.dumps(launches[path])}; ids: train "
+            f"{len(st['train_ids'])}"
+            + (f", val {len(st['val_ids'])} (disjoint), calibration {len(st['calib_ids'])} "
+               f"(train images only)" if "val_ids" in st else "") + f" [{card}]")
+    records_after = file_digests(JAX_GATE_RECORDS)
+    if records_after != records_before:
+        raise SystemExit(f"a JAX package record changed: {records_before} -> {records_after}")
+    log(f"[gates] the JAX package's records byte-identical before and after "
+        f"({', '.join(JAX_GATE_RECORDS)}); phase 23 wall time {time.perf_counter() - t23:.1f} s "
+        f"[{card}]")
+    return launches
 
 
 # ---- 15. helpers: PNG files, a DOTA tree and Detectron2 checkpoints ----------
@@ -5087,7 +5237,15 @@ def main() -> int:
 
     # ---- 22. int8 eval -------------------------------------------------------
     phase(22, "int8 eval")
-    int8_rows = phase_int8(card, cli_main)
+    int8_rows = phase_int8(card)
+
+    # ---- 23. the trained-weight gates, short ---------------------------------
+    phase(23, "trained-weight gates (short)")
+    gates = phase_gates(card)
+    for row in int8_rows:
+        row["launches_by_path"].update({k: v[row["name"]] for k, v in gates.items()
+                                        if k != "gate_tta"})
+        row["launches"] = sum(row["launches_by_path"].values())
 
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
@@ -5097,7 +5255,8 @@ def main() -> int:
          + hrsc_nms_launches + opt_launches["suppression_matrix"]
          + r101_launches["suppression_matrix"] + dist_launches["suppression_matrix"]
          + p19_sum("suppression_matrix") + p20_sum("suppression_matrix")
-         + export_launches["suppression_matrix"],
+         + export_launches["suppression_matrix"]
+         + sum(v["suppression_matrix"] for v in gates.values()),
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
@@ -5108,7 +5267,8 @@ def main() -> int:
                               "distributed": dist_launches["suppression_matrix"],
                               **{k: v["suppression_matrix"] for k, v in p19.items()},
                               **{k: v["suppression_matrix"] for k, v in p20.items()},
-                              "export_serve": export_launches["suppression_matrix"]},
+                              "export_serve": export_launches["suppression_matrix"],
+                              **{k: v["suppression_matrix"] for k, v in gates.items()}},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "op_ms": k1_op_ms, "op_ms_one_request": export_op_ms["suppression_matrix"],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
@@ -5118,7 +5278,7 @@ def main() -> int:
          + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches
          + opt_launches["greedy_keep"] + r101_launches["greedy_keep"]
          + dist_launches["greedy_keep"] + p19_sum("greedy_keep") + p20_sum("greedy_keep")
-         + export_launches["greedy_keep"],
+         + export_launches["greedy_keep"] + sum(v["greedy_keep"] for v in gates.values()),
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
@@ -5129,7 +5289,8 @@ def main() -> int:
                               "distributed": dist_launches["greedy_keep"],
                               **{k: v["greedy_keep"] for k, v in p19.items()},
                               **{k: v["greedy_keep"] for k, v in p20.items()},
-                              "export_serve": export_launches["greedy_keep"]},
+                              "export_serve": export_launches["greedy_keep"],
+                              **{k: v["greedy_keep"] for k, v in gates.items()}},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "op_ms": g_op_ms, "op_ms_one_request": export_op_ms["greedy_keep"],
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
@@ -5137,7 +5298,8 @@ def main() -> int:
          "replaces": "dafne_tpu/ops/pallas/assign.py:35",
          "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3
          + opt_launches["assign_argmin"] + r101_launches["assign_argmin"]
-         + dist_launches["assign_argmin"] + p19_sum("assign_argmin") + p20_sum("assign_argmin"),
+         + dist_launches["assign_argmin"] + p19_sum("assign_argmin") + p20_sum("assign_argmin")
+         + sum(v["assign_argmin"] for v in gates.values()),
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
                               "files": files_launches["assign_argmin"], "hrsc": hrsc_k3,
                               "options": opt_launches["assign_argmin"],
@@ -5145,7 +5307,8 @@ def main() -> int:
                               "distributed": dist_launches["assign_argmin"],
                               **{k: v["assign_argmin"] for k, v in p19.items()
                                  if "assign_argmin" in v},
-                              **{k: v["assign_argmin"] for k, v in p20.items()}},
+                              **{k: v["assign_argmin"] for k, v in p20.items()},
+                              **{k: v["assign_argmin"] for k, v in gates.items()}},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",

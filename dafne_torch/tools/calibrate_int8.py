@@ -24,6 +24,31 @@ import argparse
 import json
 import os
 import sys
+from typing import Dict, Optional
+
+
+def calibrate(cfg, model, records, num_batches: int, min_channels: int,
+              image_ids: Optional[list] = None) -> Dict[str, float]:
+    """{site: amax} of `model` (on its device) over the first `num_batches`
+    eval batches (TPU.EVAL_BATCH, the tight eval canvas) of `records`; a
+    list `image_ids` receives the ids of the images read."""
+    from dafne_torch.data.loader import DataLoader
+    from dafne_torch.data.mapper import eval_pad_hw
+    from dafne_torch.layers.quant import calibrate_act_scales
+
+    dev = next(model.parameters()).device
+    loader = DataLoader(cfg, records, max(1, int(cfg.TPU.EVAL_BATCH)),
+                        pad_hw=eval_pad_hw(cfg, records), train=False)
+
+    def batches():
+        for i, batch in enumerate(loader):
+            if i >= num_batches:
+                break
+            if image_ids is not None:
+                image_ids.extend(b for b, ok in zip(batch["image_id"], batch["batch_valid"]) if ok)
+            yield batch["image"].to(dev)
+
+    return calibrate_act_scales(model, batches(), min_channels=min_channels)
 
 
 def main(argv=None, device: str = "cuda") -> str:
@@ -37,11 +62,9 @@ def main(argv=None, device: str = "cuda") -> str:
     args = p.parse_args(argv)
 
     from dafne_torch.config import get_cfg
-    from dafne_torch.data.loader import DataLoader
-    from dafne_torch.data.mapper import eval_pad_hw
     from dafne_torch.data.registry import get_dataset, register_all_datasets
     from dafne_torch.engine.checkpoint import restore_for_inference
-    from dafne_torch.layers.quant import MIN_QUANT_CHANNELS, calibrate_act_scales, save_act_scales
+    from dafne_torch.layers.quant import MIN_QUANT_CHANNELS, save_act_scales
 
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
@@ -50,20 +73,9 @@ def main(argv=None, device: str = "cuda") -> str:
     min_channels = int(cfg.TPU.EVAL_INT8_MIN_CHANNELS) or MIN_QUANT_CHANNELS
     register_all_datasets(cfg)
     model, step = restore_for_inference(cfg, "cpu" if args.cpu else device)
-    dev = next(model.parameters()).device
 
     dataset = cfg.DATASETS.TEST[0]
-    records = get_dataset(dataset, cfg)
-    loader = DataLoader(cfg, records, max(1, int(cfg.TPU.EVAL_BATCH)),
-                        pad_hw=eval_pad_hw(cfg, records), train=False)
-
-    def batches():
-        for i, batch in enumerate(loader):
-            if i >= args.num_batches:
-                break
-            yield batch["image"].to(dev)
-
-    scales = calibrate_act_scales(model, batches(), min_channels=min_channels)
+    scales = calibrate(cfg, model, get_dataset(dataset, cfg), args.num_batches, min_channels)
     out = args.output or os.path.join(cfg.OUTPUT_DIR, "int8_scales.json")
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     save_act_scales(out, scales)

@@ -22,11 +22,19 @@ a short run on the CPU: ``--cpu SOLVER.MAX_ITER 2``).
 Prints one line per run (bf16 mAP; mean total loss of the first and last
 20 steps; the largest loss after the warm-up and its step; train seconds)
 and then one JSON object with every run and the spread of the mAPs.
+
+The pieces the trained-weight gates (``int8_canary``, ``tta_canary``,
+``gen_canary``) share live here too: the CLI's cuDNN settings
+(``cli_backend_flags``), the record's card fields (``card_fields``), the
+model built and trained as the CLI does it (``train_recipe``), the overfit
+gates' config (``gate_recipe``), and the gate command line and its record
+(``gate_parser``, ``report``, ``gate_main``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -52,6 +60,110 @@ def make_deterministic() -> None:
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+@contextlib.contextmanager
+def cli_backend_flags():
+    """The CLI process's cuDNN and TF32 settings for the block, the caller's
+    restored after it: cuDNN's benchmark off, TF32 in cuDNN's convs, none in
+    cuBLAS's matmuls (PyTorch's defaults, which ``tools/train.py`` leaves
+    as they are).  Under the benchmark cuDNN picks its algorithms by the
+    clock, and the canary's mAP moved from run to run."""
+    import torch
+
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = False, True, False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def card_fields(device) -> dict:
+    """A gate record's "device" (the card's name, or "cpu"), "power_limit"
+    (nvidia-smi's, None on the CPU) and "torch" (its version).  nvidia-smi
+    numbers the cards apart from CUDA_VISIBLE_DEVICES, so the card's row is
+    found by its UUID."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"device": "cpu", "power_limit": None, "torch": torch.__version__}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+
+    def bare(uuid):
+        return str(uuid).strip().lower().removeprefix("gpu-")
+
+    rows = subprocess.run(["nvidia-smi", "--query-gpu=uuid,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()
+    limits = {bare(uuid): limit.strip() for uuid, limit in (r.split(",", 1) for r in rows)}
+    return {"device": torch.cuda.get_device_name(index),
+            "power_limit": limits[bare(torch.cuda.get_device_properties(index).uuid)],
+            "torch": torch.__version__}
+
+
+def gate_parser(doc: str, out) -> argparse.ArgumentParser:
+    """A gate tool's command line: --out (the record's path), --cpu and
+    trailing KEY VALUE overrides."""
+    p = argparse.ArgumentParser(description=doc,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--out", default=out, help="the record's path")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[], help="dotted-key config overrides")
+    return p
+
+
+def report(record: dict, path: str) -> int:
+    """Write a gate's record as indented JSON at `path`, print it as one
+    line, and return the exit code: 1 when a check failed."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    print(json.dumps(record), flush=True)
+    return 0 if record["ok"] else 1
+
+
+def gate_recipe(overrides, opts=()):
+    """An overfit gate's config: RECIPE, the gate's `overrides`,
+    SOLVER.MAX_ITER from CANARY_ITERS (default 800), then `opts`."""
+    from dafne_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, RECIPE))
+    cfg.merge_from_list(list(overrides) + ["SOLVER.MAX_ITER", os.environ.get("CANARY_ITERS", "800")]
+                        + list(opts))
+    return cfg
+
+
+def gate_main(argv, doc: str, out: str, run) -> int:
+    """An overfit gate's ``main``: parse `argv` (``gate_parser``), call
+    `run(opts, device)` and ``report`` its record at --out."""
+    a = gate_parser(doc, out).parse_args(argv)
+    return report(run(a.opts, "cpu" if a.cpu else "cuda"), a.out)
+
+
+def train_recipe(cfg, device, resume: bool = False):
+    """The model of `cfg` built as the CLI builds it (SEED, or 0, seeds its
+    weights) on `device` and trained by ``do_train`` over DATASETS.TRAIN, from
+    OUTPUT_DIR's newest checkpoint when `resume`.  Returns (the model in eval
+    mode, the train records, seconds of making the records and training)."""
+    import torch
+
+    from dafne_torch.data import get_dataset
+    from dafne_torch.engine.train_loop import default_setup, do_train
+    from dafne_torch.models import build_model
+
+    default_setup(cfg)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator().manual_seed(max(cfg.SEED, 0)))
+    t0 = time.perf_counter()
+    records = [r for name in cfg.DATASETS.TRAIN for r in get_dataset(name, cfg)]
+    do_train(cfg, model, records, resume=resume)
+    return model.eval(), records, time.perf_counter() - t0
 
 
 def loss_summary(losses, warmup: int) -> dict:

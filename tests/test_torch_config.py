@@ -117,7 +117,9 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.ops.kernels.deform_conv", "dafne_torch.models.backbones",
               "dafne_torch.ops.kernels.library", "dafne_torch.tools.export_model",
               "dafne_torch.utils.notify", "dafne_torch.layers.quant",
-              "dafne_torch.ops.kernels.quant", "dafne_torch.tools.calibrate_int8"):
+              "dafne_torch.ops.kernels.quant", "dafne_torch.tools.calibrate_int8",
+              "dafne_torch.tools.int8_canary", "dafne_torch.tools.tta_canary",
+              "dafne_torch.tools.gen_canary"):
         assert m in modules
 
 

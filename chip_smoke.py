@@ -257,6 +257,17 @@ Phases (any failure exits nonzero; no phase's failure is caught):
      and after; the gates' thresholds are not held at this depth.  Launches
      under launches_by_path ["gate_int8"], ["gate_tta"], ["gate_gen256"]
      and ["gate_gen1024"].
+ 24. the measurement tools, short (phase_tools): analyze_model on the
+     DOTA-1.0 1024 recipe at 1024^2 (its parameter total equal to the
+     torch parameters plus the FrozenBN buffers, the former equal to
+     sum(p.numel())), train_step_profile's phases that reach a kernel
+     (TOOL_PHASES: K3, K1, K2, greedy, the eval step, the train step) and
+     its roofline and eval_roofline at batch 8 and 1024^2 with TOOL_ITERS
+     iterations, benchmark's eval and train tasks (the recipe on
+     synthetic_gen1024_train), ablate_train_step's four variants; every
+     record parses and holds the JAX tool's fields, every roofline share is
+     at most TOOL_PCT_MAX, and K1, greedy, K3 and K2 launched.  Launches
+     under launches_by_path ["tools"].
 
 A failing phase prints "chip_smoke: phase <n> <name> failed: <message>"
 on stdout before the nonzero exit.
@@ -268,7 +279,8 @@ artifact server, and their "op_ms" through torch.ops.dafne, K3's
 from phases 7, 14, 15's and 16's CLI runs, 17, 18, 19 and 20, K2's from
 phase 11's replay, the deformable sampler's from phase 20's CLI runs, the
 int8 kernels' from phase 22's eval steps and artifact server, and K1's,
-greedy's, K3's and the int8 kernels' from phase 23's gates;
+greedy's, K3's and the int8 kernels' from phase 23's gates, K1's,
+greedy's, K3's and K2's from phase 24's tools;
 "launches_by_path" splits them); the last line is {"ok": true, "device": {...}}.  Every time printed is
 measured in this run, on the card named by the nvidia-smi line: kernel_ms
 (and "ms" in the kernels line) on CUDA events around the wrapper's call,
@@ -303,18 +315,18 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores and HBM3 bandwidth, used for the bounds
-F32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-# F32_FLOPS counts a fused multiply-add as 2 operations.  The kernels are
-# built with -fmad=false, so each add, mul or compare is an instruction of
-# its own, issued at most once per FP32 lane per cycle: half that rate.
-F32_OPS_NO_FMA = F32_FLOPS / 2
-# H100 SXM boost clock (data sheet), and the latency of one dependent
-# integer ALU step: the greedy walk's serial floor
-SM_CLOCK_HZ = 1.98e9
-SERIAL_STEP_CYCLES = 4
+# the published H100 SXM peaks and the timers (dafne_torch/utils/measure.py)
+from dafne_torch.utils.measure import (  # noqa: E402
+    F32_FLOPS,
+    F32_OPS_NO_FMA,
+    HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
+    bound,
+    cuda_ms,
+    device_ms,
+    host_ms,
+)
+
 # kernel names as the profiler reports them
 K1_KERNEL, GREEDY_KERNEL = "suppression_bits_kernel", "greedy_keep_bits_kernel"
 K2_KERNEL, K3_KERNEL = "suppression_bits_2d_kernel", "assign_argmin_kernel"
@@ -323,9 +335,11 @@ K2_KERNEL, K3_KERNEL = "suppression_bits_2d_kernel", "assign_argmin_kernel"
 # up to 10 of one call's 57 kernels in all 3 traces of a call once
 KERNEL_COUNT_TRACES = 8
 # rounds of such traces (pallas, pallas-2d, pallas) in phase 11's kernel
-# comparison: all 8 traces of one call have missed the same 6 events, so a
-# round whose maxima differ is traced again, each name keeping its most
-# over every round; the counts are then the same or a kernel is extra
+# comparison: all 8 traces of one call have missed the same 6 events (the
+# call's first: a profiler session loses its first events, which
+# ``device_kernels`` now spends on a discarded warm-up call), so a round
+# whose maxima differ is traced again, each name keeping its most over
+# every round; the counts are then the same or a kernel is extra
 KERNEL_COUNT_ROUNDS = 4
 # calls of a plain version timed outside the kernels line (phases 2, 3 and
 # time_nms), each right after a call of the same plain version, so warm:
@@ -515,60 +529,25 @@ def failed(line):
     print(line, file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, kernel, reps=20, traces=3):
-    """Mean device time per call of fn() of the CUDA kernels whose name
-    holds `kernel` ("" for all of them: the device's busy time), from a
-    torch.profiler trace of `reps` calls after one warm-up call: the
-    kernels alone, without the host time that CUDA events around a call
-    (cuda_ms) also hold when the card waits for a launch.  A trace that
-    holds no such kernel (the profiler drops one now and then) is taken
-    again, up to `traces` times; then None: not measured."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
-        if total_us > 0:
-            return total_us / reps / 1e3
-    return None
-
-
 def device_kernels(fn, traces=3):
     """{kernel name: launches} (fills and copies included) of one call of
     fn() on the card, from torch.profiler traces after one warm-up call:
     per name the most of `traces` traces, since a trace drops events now
-    and then."""
-    from torch.profiler import ProfilerActivity, profile
+    and then.  A profiler session loses its first events, so each trace
+    records a warm-up call that the schedule discards, then the call it
+    keeps, as ``device_ms`` does."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     most = Counter()
     for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up call, then the kept one
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         for e in prof.key_averages():
             if e.self_device_time_total > 0:
                 most[e.key] = max(most[e.key], e.count)
@@ -577,18 +556,6 @@ def device_kernels(fn, traces=3):
 
 def fmt_ms(ms, digits=4):
     return "not measured" if ms is None else f"{ms:.{digits}f}"
-
-
-def host_ms(fn, reps=3):
-    """Median host-clock ms of fn(), synchronised with the card on both ends."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def random_quads(rng, b, n, extent=1024.0):
@@ -626,67 +593,6 @@ def class_major_mix(rng, b, n, n_valid, n_classes=15, class_major=True):
         classes = np.take_along_axis(classes, order, 1)
     corners = _as_ccw_rows(torch.from_numpy(quads)).cuda().contiguous()
     return corners, torch.from_numpy(classes).cuda()
-
-
-def suppression_bound(classes, n):
-    """((bound ms, bound_by), same-class pairs, ops bound ms without FMA,
-    {"bits": ms, "int8": ms}): the larger of the f32 work these inputs need
-    (OPS_PER_PAIR for every same-class pair j > i) over F32_FLOPS and the
-    bytes (corners and classes read once, S written once as bit rows, N^2 /
-    8 bytes, as K1 and K2 write it) over the card's memory rate.  The third
-    item is the work over F32_OPS_NO_FMA, the rate the kernels as built can
-    reach; the last, the bytes bound of S as bit rows and as int8."""
-    from dafne_torch.ops.kernels.quad_nms import OPS_PER_PAIR
-
-    cls = classes.cpu().numpy()
-    pairs = 0
-    for row in cls:
-        counts = np.bincount(row[row >= 0])
-        pairs += int((counts * (counts - 1) // 2).sum())
-    b = cls.shape[0]
-    t_ops = pairs * OPS_PER_PAIR / F32_FLOPS * 1e3
-    by_layout = {k: b * (n * 8 * 4 + n * 4 + s) / HBM_BYTES_PER_S * 1e3
-                 for k, s in (("bits", n * n // 8), ("int8", n * n))}
-    t_bytes = by_layout["bits"]
-    bound = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-    return bound, pairs, pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3, by_layout
-
-
-def greedy_bound(keep, n):
-    """((bound ms, "bytes"), int8 bytes ms, serial floor ms).  The bound is
-    the bytes the walk needs: each kept row i's upper-triangle words of the
-    bit rows (words i // 32 .. N / 32 - 1, 4 bytes each), plus the keep_init
-    read and the keep written; no arithmetic to speak of.  Beside it, the
-    same over int8 S (N - 1 - i bytes per kept row), and the serial floor
-    the chunked design implies: N / 32 chunks of 32 dependent steps, each at
-    least one ALU latency (SERIAL_STEP_CYCLES) at the boost clock."""
-    idx = torch.nonzero(keep)[:, 1].cpu().numpy()
-    words = n // 32
-    word_bytes = int((words - idx // 32).sum()) * 4 + 2 * keep.numel()
-    int8_bytes = int((n - 1 - idx).sum()) + 2 * keep.numel()
-    floor = words * 32 * SERIAL_STEP_CYCLES / SM_CLOCK_HZ * 1e3
-    return ((word_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-            int8_bytes / HBM_BYTES_PER_S * 1e3, floor)
-
-
-def assign_bound(pairs, k, b, m):
-    """((bound ms, bound_by), ops ms over every valid pair, ops bound ms
-    without FMA): the larger of the f32 work these inputs need
-    (OPS_PER_PAIR for every candidate pair of pair_counts: a location
-    inside the gt's clipped center box with its max-ltrb in its size
-    range, where only the point-in-quad test is left to decide whether the
-    value is finite) over F32_FLOPS and the bytes (20 per location for its point,
-    stride and size range, 53 per gt slot, 8 per location and image
-    written) over the card's memory rate.  The second item is the bound of
-    earlier runs, OPS_PER_PAIR for every (location, valid gt) pair: a
-    kernel that culls gts no longer does that work."""
-    from dafne_torch.ops.kernels.assign import OPS_PER_PAIR
-
-    t_ops = pairs["candidate"] * OPS_PER_PAIR / F32_FLOPS * 1e3
-    t_bytes = (k * 20 + b * m * 53 + b * k * 8) / HBM_BYTES_PER_S * 1e3
-    bound = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-    return (bound, pairs["valid"] * OPS_PER_PAIR / F32_FLOPS * 1e3,
-            pairs["candidate"] * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3)
 
 
 def full_gts(rng, b, m):
@@ -731,7 +637,7 @@ def check_assign(spec, tables, g, what, card):
     locations, loc_strides, size_ranges = tables[1:]
     (b, m), k = g["gt_valid"].shape, locations.shape[0]
     pairs = A.pair_counts(locations, loc_strides, size_ranges, g["gt_hbox"], g["gt_valid"], spec)
-    (bound, by), valid_bound, no_fma = assign_bound(pairs, k, b, m)
+    (bound, by), valid_bound, no_fma = A.assign_bound(pairs, k, b, m)
     ms = cuda_ms(lambda: A.assign_argmin_cuda(*args))
     dev = device_ms(lambda: A.assign_argmin_cuda(*args), K3_KERNEL)
     plain_ms = cuda_ms(lambda: A.assign_argmin_plain(*args), reps=3, warmup=1)
@@ -818,7 +724,7 @@ def check_k2(corners, classes, what, card):
     del s_plain
     live = int(K.live_blocks(classes, K.TILE_2D, K.TILE_2D).sum())
     n_tiles = n // K.TILE_2D
-    (bound, by), pairs, no_fma, layouts = suppression_bound(classes, n)
+    (bound, by), pairs, no_fma, layouts = K.suppression_bound(classes, n)
     ms = cuda_ms(lambda: K.suppression_bits_2d_cuda(corners, classes, 0.1))
     dev = device_ms(lambda: K.suppression_bits_2d_cuda(corners, classes, 0.1), K2_KERNEL)
     k1_dev = device_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1), K1_KERNEL)
@@ -1504,7 +1410,6 @@ def phase_export(card, bias_minus_2_checkpoint):
 
 # ---- 22. int8 eval ----------------------------------------------------------
 
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 INT8_SEED = 22  # the torch seed of phase 22's model
 INT8_STEPS = 3  # timed eval steps of each program in (b)
 INT8_CALIB_BATCHES = 2  # calibration batches of 8 on the card
@@ -1589,7 +1494,8 @@ def int8_times(x, mod, card, what):
     ho, wo = QK.conv_out_hw(h, w, kh, kw, stride, padding, dilation)
     xq, xs = QK.quantize_act_cuda(x, scale)
     q = {"ms": cuda_ms(lambda: QK.quantize_act_cuda(x, scale), reps=OP_REPS),
-         "device_ms": device_ms(lambda: QK.quantize_act_cuda(x, scale), "quantize_act"),
+         "device_ms": device_ms(lambda: QK.quantize_act_cuda(x, scale), "quantize_act",
+                                launches=1 if scale > 0 else 2),  # (dynamic: absmax, store)
          "plain_ms": cuda_ms(lambda: QK.quantize_act_plain(x, scale), reps=PLAIN_REPS, warmup=0),
          "bound_ms": QK.quantize_bytes(n, c, h, w, x.element_size()) / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": None}
@@ -2074,6 +1980,117 @@ DOTA_10_CLASSES = [  # the DOTA-1.0 categories, in the devkit's id order
 ]
 
 
+# phase 24: the measurement tools at full width, cut iterations
+TOOL_PHASES = ["model_fwd", "assign_only", "eval_full", "nms_only", "suppression_only",
+               "suppression_only_2d", "greedy_only", "decode_only", "train_step",
+               "eval_roofline", "roofline"]
+TOOL_ITERS, TOOL_WARMUP = 2, 1  # the profile's, the benchmark's and the ablation's
+TOOL_PCT_MAX = 1.05  # a roofline share over this is a wrong bound or a wrong time
+#: the JAX tools' record fields (tools/train_step_profile.py :683-701, :821-832;
+#: tools/benchmark.py :158-285)
+PROFILE_ROW_FIELDS = ("flops_g", "bytes_gb", "flops_bound_ms", "bw_bound_ms", "bound_ms", "bound",
+                      "measured_ms", "pct_of_bound")
+EVAL_ROW_FIELDS = ("measured_ms", "flops_g", "bytes_gb", "compute_unit", "compute_bound_ms",
+                   "bw_bound_ms", "bound_ms", "pct_of_bound")
+BENCH_FIELDS = {"eval": ("task", "img_per_s", "latency_ms", "pad_hw", "batch_size", "device"),
+                "train": ("task", "img_per_s", "step_ms", "bucketed", "device_aug", "canvases",
+                          "batch_size", "device")}
+
+
+def phase_tools(card):
+    """Phase 24: each measurement tool in this process at the DOTA-1.0 1024
+    recipe's width with cut iterations (TOOL_ITERS), its records under
+    output/chip_smoke_tools.  Returns {kernel: launches} of the four tools."""
+    from argparse import Namespace
+
+    from dafne_torch.models import build_model
+    from dafne_torch.ops.kernels import assign as A
+    from dafne_torch.ops.kernels import quad_nms as K
+    from dafne_torch.tools import ablate_train_step, analyze_model, benchmark
+    from dafne_torch.tools import train_step_profile as TSP
+
+    t24 = time.perf_counter()
+    out = os.path.join(ROOT, "output", "chip_smoke_tools")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    K.reset_launch_counts()
+    A.reset_launch_counts()
+    cfg = analyze_model.load_cfg("", DOTA_1024)
+    t0 = time.perf_counter()
+    rep = analyze_model.analyze(cfg, ["parameter", "flop"], "cuda", image_size=CANVAS)
+    model = build_model(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    par = rep["parameter"]
+    if (par["torch_parameters"] != n_params
+            or par["total"] != par["torch_parameters"] + par["frozen_bn_buffers"]):
+        raise SystemExit(f"analyze_model's parameters {par} against sum(p.numel()) {n_params}")
+    log(f"[tools analyze_model] {par['total']:,} parameters (JAX's count: torch parameters "
+        f"{n_params:,} = sum(p.numel()) + FrozenBN buffers {par['frozen_bn_buffers']:,}), "
+        f"groups {par['groups']}; forward at 1024^2 batch 1: {rep['flop']['flops'] / 1e9:.1f} "
+        f"GFLOP, {rep['flop']['bytes'] / 1e6:.1f} MB; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    prof = TSP.run(TOOL_PHASES, "cuda", batch=BATCH, hw=CANVAS, iters=TOOL_ITERS,
+                   warmup=TOOL_WARMUP)
+    path = os.path.join(out, "PROFILE_TRAIN_TORCH.json")
+    TSP.write(prof, path, BATCH)
+    with open(path) as f:
+        prof = json.load(f)
+    missing = [f"{p}_ms" for p in TOOL_PHASES if p not in ("eval_roofline", "roofline")
+               and f"{p}_ms" not in prof]
+    missing += [f"roofline.{k}.{f}" for k in ("model_fwd", "model_grad", "eval_full", "train_step")
+                for f in PROFILE_ROW_FIELDS if f not in prof["roofline"].get(k, {})]
+    missing += [f"eval_roofline.{k}.{f}" for k in ("model_fwd", "decode_topk", "nms")
+                for f in EVAL_ROW_FIELDS if f not in prof["eval_roofline"].get(k, {})]
+    if missing or not all(isinstance(prof["mfu"][k], float) for k in ("train_step", "eval_full")):
+        raise SystemExit(f"train_step_profile's record lacks {missing} or an mfu: {prof['mfu']}")
+    shares = {f"{t}.{k}": r["pct_of_bound"] for t in ("roofline", "eval_roofline")
+              for k, r in prof[t].items() if r.get("pct_of_bound") is not None}
+    if not shares or max(shares.values()) > TOOL_PCT_MAX:
+        raise SystemExit(f"a roofline share over {TOOL_PCT_MAX}: {shares}")
+    log(f"[tools train_step_profile] batch {BATCH} {CANVAS}^2, {TOOL_ITERS} iterations: "
+        + ", ".join(f"{p} {prof[p + '_ms']:.2f} ms" for p in TOOL_PHASES if p + "_ms" in prof)
+        + f"; mfu train_step {prof['mfu']['train_step']:.3f} eval_full "
+        f"{prof['mfu']['eval_full']:.3f}; roofline shares {json.dumps(shares)}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    bench_opts = DOTA_1024 + ["DATASETS.TRAIN", "('synthetic_gen1024_train',)",
+                              "DEBUG.OVERFIT_NUM_IMAGES", "16"]
+    for task in ("eval", "train"):
+        bcfg = analyze_model.load_cfg("", bench_opts)
+        res = benchmark.run(bcfg, Namespace(task=task, iters=TOOL_ITERS, warmup=TOOL_WARMUP),
+                            "cuda")
+        json.loads(json.dumps(res))
+        lacks = [f for f in BENCH_FIELDS[task] + ("mfu", "power_limit") if f not in res]
+        if lacks or not isinstance(res["mfu"], float):
+            raise SystemExit(f"benchmark {task} lacks {lacks} or its mfu: {res}")
+        log(f"[tools benchmark {task}] {json.dumps(res)}")
+    log(f"[tools benchmark] {time.perf_counter() - t0:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    abl = ablate_train_step.run(list(ablate_train_step.VARIANTS), "cuda", batch=BATCH, hw=CANVAS,
+                                iters=TOOL_ITERS, warmup=TOOL_WARMUP)
+    TSP.write({"train_ablation_ms": abl["train_ablation_ms"]}, path, BATCH)
+    with open(path) as f:
+        if set(json.load(f)["train_ablation_ms"]) != set(ablate_train_step.VARIANTS):
+            raise SystemExit("ablate_train_step's record lacks a variant")
+    log(f"[tools ablate_train_step] {json.dumps(abl['train_ablation_ms'])}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    launches = {"suppression_matrix": K.suppression_bits_cuda.launches,
+                "suppression_matrix_2d": K.suppression_bits_2d_cuda.launches,
+                "greedy_keep": K.greedy_keep_bits_cuda.launches,
+                "assign_argmin": A.assign_argmin_cuda.launches}
+    if not all(launches.values()):
+        raise SystemExit(f"a kernel of the tools' path never launched: {launches}")
+    log(f"[tools] launches {launches}; phase 24 wall time {time.perf_counter() - t24:.1f} s "
+        f"[{card}]")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def start_server(args, log_path, timeout=240):
     """``python -m dafne_torch.tools.serve`` with `args` on a free port, as a
     process of its own (the CLI's cuDNN settings), its stderr in
@@ -2144,10 +2161,10 @@ def time_nms(head, spec, what, card):
     keep = K.greedy_keep_bits_cuda(bits, pv)
     k1 = (cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr)),
           cuda_ms(lambda: K.suppression_matrix_plain(pc, pk, thr), reps=PLAIN_REPS, warmup=0),
-          *suppression_bound(pk, pk.shape[1])[0])
+          *K.suppression_bound(pk, pk.shape[1])[0])
     g = (cuda_ms(lambda: K.greedy_keep_bits_cuda(bits, pv)),
          cuda_ms(lambda: K.greedy_keep_plain(s_plain, pv), reps=PLAIN_REPS, warmup=0),
-         *greedy_bound(keep, pk.shape[1])[0])
+         *K.greedy_bound(keep, pk.shape[1])[0])
     log(f"[K1/greedy {what}] NMS input {rows[0]} ({rows[1]} valid slots, {rows[2]} kept): K1 "
         f"bits equal to the packed plain S, greedy's keep-set to the plain walk; K1 "
         f"kernel_ms={k1[0]:.4f} plain_ms={k1[1]:.2f} bound_ms={k1[2]:.5f} ({k1[3]}); greedy "
@@ -2548,9 +2565,7 @@ def deform_bound(n, c, h, w, itemsize, mask, backward=False):
     else:
         nbytes = DK.forward_bytes(n, c, h, w, itemsize, mask)
         ops = DK.OPS_FORWARD + (DK.OPS_FORWARD_MASK if mask else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops * n * 9 * c * h * w / F32_OPS_NO_FMA * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(ops * n * 9 * c * h * w, F32_OPS_NO_FMA, nbytes)
 
 
 def deform_plain_grads(x, off, mask, g, dtype=None):
@@ -3571,7 +3586,7 @@ def main() -> int:
         dev = device_ms(lambda: K.suppression_bits_cuda(corners, classes, 0.1), K1_KERNEL)
         plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(corners, classes, 0.1),
                            reps=PLAIN_REPS, warmup=0)
-        (bound, by), pairs, no_fma, layouts = suppression_bound(classes, n)
+        (bound, by), pairs, no_fma, layouts = K.suppression_bound(classes, n)
         live = int(K.live_blocks(classes).sum())
         log(f"[K1 {mix}] B={b} N={n} nonzeros={int(s_plain.sum())} differing_words=0 "
             f"live_blocks={live} of {b * (n // K.STRIP) * (n // K.TILE)} kernel_ms={ms:.4f} "
@@ -3595,7 +3610,7 @@ def main() -> int:
         ms = cuda_ms(lambda: K.greedy_keep_bits_cuda(bits, keep_init))
         dev = device_ms(lambda: K.greedy_keep_bits_cuda(bits, keep_init), GREEDY_KERNEL)
         plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s, keep_init), reps=PLAIN_REPS, warmup=0)
-        (bound, by), int8_bound, floor = greedy_bound(k_kernel, n)
+        (bound, by), int8_bound, floor = K.greedy_bound(k_kernel, n)
         log(f"[greedy {mix}] B={s.shape[0]} N={n} kept={int(k_kernel.sum())} differing=0 "
             f"kernel_ms={ms:.4f} device_ms={fmt_ms(dev)} plain_ms={plain_ms:.2f} bound_ms={bound:.5f} "
             f"({by}, bit-row words; over int8 S {int8_bound:.5f}) serial_floor_ms={floor:.5f} "
@@ -3684,7 +3699,8 @@ def main() -> int:
                                           cand["valid"], spec.class_merge, scores01=True)
         model_ms = cuda_ms(lambda: model(images), reps=10, warmup=2)
         decode_ms = cuda_ms(lambda: decode_detections(head, spec), reps=10, warmup=2)
-        decode_busy = device_ms(lambda: decode_detections(head, spec), "", reps=10)
+        decode_busy = device_ms(lambda: decode_detections(head, spec), "", reps=10,
+                                launches=None)
         thr = spec.nms_threshold
         bits_main, s_plain = check_k1(pc, pk, thr, "the main path's inputs")
         keep_main = check_greedy(bits_main, s_plain, pv, "the main path's inputs")
@@ -3698,8 +3714,8 @@ def main() -> int:
         k1_dev = device_ms(lambda: K.suppression_bits_cuda(pc, pk, thr), K1_KERNEL)
         g_dev = device_ms(lambda: K.greedy_keep_bits_cuda(bits_main, pv), GREEDY_KERNEL)
         g_plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s_plain, pv), reps=3, warmup=1)
-    (k1_bound, k1_by), pairs, k1_no_fma, k1_layouts = suppression_bound(pk, pk.shape[1])
-    (g_bound, g_by), g_int8_bound, g_floor = greedy_bound(keep_main, pk.shape[1])
+    (k1_bound, k1_by), pairs, k1_no_fma, k1_layouts = K.suppression_bound(pk, pk.shape[1])
+    (g_bound, g_by), g_int8_bound, g_floor = K.greedy_bound(keep_main, pk.shape[1])
     k1_live = int(K.live_blocks(pk).sum())
     n_img = WINDOWS * len(requests)
     log(f"[main] R-50 DOTA {CANVAS}x{CANVAS} bf16 batch {b}: {n_img / sum(windows_s):.2f} img/s "
@@ -3736,7 +3752,7 @@ def main() -> int:
         ng_dev = device_ms(lambda: K.greedy_keep_bits_cuda(nbits, npv), GREEDY_KERNEL)
         nk1_dev = device_ms(lambda: K.suppression_bits_cuda(npc, npk, thr), K1_KERNEL)
         ndecode_ms = cuda_ms(lambda: decode_detections(head, nspec), reps=10, warmup=2)
-    (ng_bound, _), ng_int8_bound, ng_floor = greedy_bound(nkeep, npk.shape[1])
+    (ng_bound, _), ng_int8_bound, ng_floor = K.greedy_bound(nkeep, npk.shape[1])
     log(f"[main no-cap] the same batch with TPU.NMS_MAX_CANDIDATES 0: NMS N={npk.shape[1]} "
         f"(valid {int(npv.sum())}), K1 bits equal to the packed plain S, greedy equal to the "
         f"plain walk (kept {int(nkeep.sum())}); decode_ms={ndecode_ms:.3f} greedy_ms={ng_ms:.4f} "
@@ -4001,7 +4017,7 @@ def main() -> int:
             split[path] = {
                 "decode_ms": cuda_ms(lambda: decode_detections(head0, spec_), reps=10, warmup=2),
                 "decode_device_busy_ms": device_ms(lambda: decode_detections(head0, spec_), "",
-                                                   reps=10),
+                                                   reps=10, launches=None),
                 "K1_ms": cuda_ms(lambda: K.suppression_bits_cuda(pc, pk, thr)),
                 "greedy_ms": cuda_ms(lambda: K.greedy_keep_bits_cuda(bits_, pv)),
                 "nms_rows": list(pk.shape),
@@ -4037,10 +4053,10 @@ def main() -> int:
         gk1_dev = device_ms(lambda: K.suppression_bits_cuda(pc, pk, thr), K1_KERNEL)
         gg_dev = device_ms(lambda: K.greedy_keep_bits_cuda(bits_, pv), GREEDY_KERNEL)
         gk1_plain_ms = cuda_ms(lambda: K.suppression_matrix_plain(pc, pk, thr), reps=3, warmup=1)
-        (gk1_bound, gk1_by), gpairs, gk1_no_fma, _ = suppression_bound(pk, pk.shape[1])
+        (gk1_bound, gk1_by), gpairs, gk1_no_fma, _ = K.suppression_bound(pk, pk.shape[1])
         gg_ms = cuda_ms(lambda: K.greedy_keep_bits_cuda(bits_, pv))
         gg_plain_ms = cuda_ms(lambda: K.greedy_keep_plain(s_, pv), reps=3, warmup=1)
-        (gg_bound, gg_by), gg_int8_bound, gg_floor = greedy_bound(k_kernel, pv.shape[1])
+        (gg_bound, gg_by), gg_int8_bound, gg_floor = K.greedy_bound(k_kernel, pv.shape[1])
         g_live = int(K.live_blocks(pk).sum())
     log(f"[K1 grouped eval] {len(cands)} batches of [B*G, K]={list(pk.shape)}: bit rows equal to "
         f"the packed plain S (differing_words=0); last batch kernel_ms={gk1_ms:.4f} "
@@ -5247,6 +5263,10 @@ def main() -> int:
                                         if k != "gate_tta"})
         row["launches"] = sum(row["launches_by_path"].values())
 
+    # ---- 24. the measurement tools, short ------------------------------------
+    phase(24, "measurement tools (short)")
+    tools = phase_tools(card)
+
     kernels = [
         {"name": "suppression_matrix", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
          "replaces": "dafne_tpu/ops/pallas/quad_nms.py:164",
@@ -5256,7 +5276,7 @@ def main() -> int:
          + r101_launches["suppression_matrix"] + dist_launches["suppression_matrix"]
          + p19_sum("suppression_matrix") + p20_sum("suppression_matrix")
          + export_launches["suppression_matrix"]
-         + sum(v["suppression_matrix"] for v in gates.values()),
+         + sum(v["suppression_matrix"] for v in gates.values()) + tools["suppression_matrix"],
          "launches_by_path": {"inference": launches["suppression_matrix"],
                               "eval": eval_launches["suppression_matrix"],
                               "tta": tta_launches["suppression_matrix"],
@@ -5268,7 +5288,8 @@ def main() -> int:
                               **{k: v["suppression_matrix"] for k, v in p19.items()},
                               **{k: v["suppression_matrix"] for k, v in p20.items()},
                               "export_serve": export_launches["suppression_matrix"],
-                              **{k: v["suppression_matrix"] for k, v in gates.items()}},
+                              **{k: v["suppression_matrix"] for k, v in gates.items()},
+                              "tools": tools["suppression_matrix"]},
          "max_abs_err": max_err["suppression_matrix"], "ms": k1_ms, "device_ms": k1_dev,
          "op_ms": k1_op_ms, "op_ms_one_request": export_op_ms["suppression_matrix"],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
@@ -5278,7 +5299,8 @@ def main() -> int:
          + tta_launches["greedy_keep"] + files_launches["greedy_keep"] + hrsc_nms_launches
          + opt_launches["greedy_keep"] + r101_launches["greedy_keep"]
          + dist_launches["greedy_keep"] + p19_sum("greedy_keep") + p20_sum("greedy_keep")
-         + export_launches["greedy_keep"] + sum(v["greedy_keep"] for v in gates.values()),
+         + export_launches["greedy_keep"] + sum(v["greedy_keep"] for v in gates.values())
+         + tools["greedy_keep"],
          "launches_by_path": {"inference": launches["greedy_keep"],
                               "eval": eval_launches["greedy_keep"],
                               "tta": tta_launches["greedy_keep"],
@@ -5290,7 +5312,8 @@ def main() -> int:
                               **{k: v["greedy_keep"] for k, v in p19.items()},
                               **{k: v["greedy_keep"] for k, v in p20.items()},
                               "export_serve": export_launches["greedy_keep"],
-                              **{k: v["greedy_keep"] for k, v in gates.items()}},
+                              **{k: v["greedy_keep"] for k, v in gates.items()},
+                              "tools": tools["greedy_keep"]},
          "max_abs_err": max_err["greedy_keep"], "ms": g_ms, "device_ms": g_dev,
          "op_ms": g_op_ms, "op_ms_one_request": export_op_ms["greedy_keep"],
          "plain_ms": g_plain_ms, "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
@@ -5299,7 +5322,7 @@ def main() -> int:
          "launches": train_launches + da_launches + files_launches["assign_argmin"] + hrsc_k3
          + opt_launches["assign_argmin"] + r101_launches["assign_argmin"]
          + dist_launches["assign_argmin"] + p19_sum("assign_argmin") + p20_sum("assign_argmin")
-         + sum(v["assign_argmin"] for v in gates.values()),
+         + sum(v["assign_argmin"] for v in gates.values()) + tools["assign_argmin"],
          "launches_by_path": {"train": train_launches, "train_device_aug": da_launches,
                               "files": files_launches["assign_argmin"], "hrsc": hrsc_k3,
                               "options": opt_launches["assign_argmin"],
@@ -5308,11 +5331,14 @@ def main() -> int:
                               **{k: v["assign_argmin"] for k, v in p19.items()
                                  if "assign_argmin" in v},
                               **{k: v["assign_argmin"] for k, v in p20.items()},
-                              **{k: v["assign_argmin"] for k, v in gates.items()}},
+                              **{k: v["assign_argmin"] for k, v in gates.items()},
+                              "tools": tools["assign_argmin"]},
          "max_abs_err": max_err["assign_argmin"], "ms": k3_ms, "device_ms": k3_dev,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "suppression_matrix_2d", "route": "cuda", "source": "dafne_torch/csrc/quad_nms.cu",
-         "replaces": "dafne_tpu/ops/pallas/quad_nms.py:128", "launches": k2_launches,
+         "replaces": "dafne_tpu/ops/pallas/quad_nms.py:128",
+         "launches": k2_launches + tools["suppression_matrix_2d"],
+         "launches_by_path": {"eval_replay": k2_launches, "tools": tools["suppression_matrix_2d"]},
          "max_abs_err": max_err["suppression_matrix_2d"], "ms": k2_ms, "device_ms": k2_dev,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         *({"name": name, "route": "cuda", "source": "dafne_torch/csrc/deform_conv.cu",

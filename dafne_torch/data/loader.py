@@ -214,3 +214,7 @@ class DataLoader:
                     q.get_nowait()
             except queue.Empty:
                 pass
+            # the producer finishes the batch it is mapping, puts it in the
+            # emptied queue and stops: wait for it, so that no warp runs on
+            # a worker thread while the interpreter exits
+            thread.join()

@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from dafne_torch.ops.kernels.build import check_cuda, load
+from dafne_torch.utils.measure import F32_FLOPS, F32_OPS_NO_FMA, bound
 
 INF = 100000000.0
 EPS = 1e-3  # the in-quad tolerance of the reference (dafne_outputs.py:109-119)
@@ -235,6 +236,29 @@ def pair_counts(locations, loc_strides, size_ranges, gt_hbox, gt_valid, spec,
             finite = finite & (max_ltrb >= lo) & (max_ltrb <= hi)
         candidate += int(finite.sum())
     return {**counts, "candidate": candidate}
+
+
+def assign_bytes(k: int, b: int, m: int) -> int:
+    """K3's bytes, each input read once and each output written once: 20
+    per location for its point, stride and size range, 53 per gt slot
+    (corners, hbox, area, class, valid), 8 per location and image written
+    (min_area and argmin)."""
+    return k * 20 + b * m * 53 + b * k * 8
+
+
+def assign_bound(pairs, k: int, b: int, m: int):
+    """((bound ms, bound_by), ops ms over every valid pair, ops bound ms
+    without FMA) of K3 with the pair counts `pairs` (``pair_counts``): the
+    larger of the f32 work these inputs need (OPS_PER_PAIR for every
+    candidate pair: a location inside the gt's clipped center box with its
+    max-ltrb in its size range, where only the point-in-quad test is left
+    to decide whether the value is finite) over F32_FLOPS and
+    ``assign_bytes`` over the card's memory rate.  The second item is the
+    bound of earlier runs, OPS_PER_PAIR for every (location, valid gt)
+    pair: a kernel that culls gts no longer does that work."""
+    return (bound(pairs["candidate"] * OPS_PER_PAIR, F32_FLOPS, assign_bytes(k, b, m)),
+            pairs["valid"] * OPS_PER_PAIR / F32_FLOPS * 1e3,
+            pairs["candidate"] * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3)
 
 
 def _lib():

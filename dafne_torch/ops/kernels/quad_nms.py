@@ -25,6 +25,14 @@ import ctypes
 import torch
 
 from dafne_torch.ops.kernels.build import check_cuda, load
+from dafne_torch.utils.measure import (
+    F32_FLOPS,
+    F32_OPS_NO_FMA,
+    HBM_BYTES_PER_S,
+    SERIAL_STEP_CYCLES,
+    SM_CLOCK_HZ,
+    bound,
+)
 
 TILE = 128  # column block of K1; NMS pads N to a multiple
 STRIP = 64  # rows per strip of K1
@@ -319,6 +327,68 @@ def greedy_keep_bits(bits: torch.Tensor, keep_init: torch.Tensor) -> torch.Tenso
     read; ``dafne::greedy_keep_bits``): the CUDA kernel for CUDA tensors,
     the plain walk over the unpacked S for CPU tensors."""
     return torch.ops.dafne.greedy_keep_bits(bits, keep_init)
+
+
+# ----------------------------------------------------------------------------
+# work counts and bounds
+# ----------------------------------------------------------------------------
+
+
+def same_class_pairs(classes: torch.Tensor) -> int:
+    """The pairs j > i of one image with the same valid class (>= 0), summed
+    over the batch: the pairs whose IoU K1 and K2 must compute."""
+    pairs = 0
+    for row in classes.cpu():
+        counts = torch.bincount(row[row >= 0].long())
+        pairs += int((counts * (counts - 1) // 2).sum())
+    return pairs
+
+
+def suppression_bytes(b: int, n: int) -> int:
+    """K1's and K2's bytes for [B, N] candidates: corners and classes read
+    once, S written once as bit rows (N^2 / 8 bytes per image)."""
+    return b * (n * 8 * 4 + n * 4 + n * n // 8)
+
+
+def suppression_bound(classes: torch.Tensor, n: int):
+    """((bound ms, bound_by), same-class pairs, ops bound ms without FMA,
+    {"bits": ms, "int8": ms}) of K1 or K2 on `classes` [B, N]: the larger
+    of the f32 work these inputs need (OPS_PER_PAIR for every same-class
+    pair j > i) over F32_FLOPS and the bytes (corners and classes read
+    once, S written once as bit rows, N^2 / 8 bytes, as K1 and K2 write it)
+    over the card's memory rate.  The third item is the work over
+    F32_OPS_NO_FMA, the rate the kernels as built can reach; the last, the
+    bytes bound of S as bit rows and as int8."""
+    pairs = same_class_pairs(classes)
+    b = classes.shape[0]
+    by_layout = {"bits": suppression_bytes(b, n) / HBM_BYTES_PER_S * 1e3,
+                 "int8": b * (n * 8 * 4 + n * 4 + n * n) / HBM_BYTES_PER_S * 1e3}
+    return (bound(pairs * OPS_PER_PAIR, F32_FLOPS, suppression_bytes(b, n)), pairs,
+            pairs * OPS_PER_PAIR / F32_OPS_NO_FMA * 1e3, by_layout)
+
+
+def greedy_bytes(keep: torch.Tensor) -> int:
+    """The bytes the greedy walk needs for the keep-set `keep` [B, N]: each
+    kept row i's upper-triangle words of the bit rows (words i // 32 ..
+    N / 32 - 1, 4 bytes each), plus the keep_init read and the keep
+    written."""
+    n = keep.shape[1]
+    idx = torch.nonzero(keep.cpu())[:, 1]
+    return int((n // 32 - idx // 32).sum()) * 4 + 2 * keep.numel()
+
+
+def greedy_bound(keep: torch.Tensor, n: int):
+    """((bound ms, "bytes"), int8 bytes ms, serial floor ms) of the greedy
+    kernel that returned `keep`.  The bound is ``greedy_bytes`` over the
+    card's memory rate (no arithmetic to speak of).  Beside it, the same
+    over int8 S (N - 1 - i bytes per kept row), and the serial floor the
+    chunked design implies: N / 32 chunks of 32 dependent steps, each at
+    least one ALU latency (SERIAL_STEP_CYCLES) at the boost clock."""
+    idx = torch.nonzero(keep.cpu())[:, 1]
+    int8_bytes = int((n - 1 - idx).sum()) + 2 * keep.numel()
+    floor = n // 32 * 32 * SERIAL_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+    return ((greedy_bytes(keep) / HBM_BYTES_PER_S * 1e3, "bytes"),
+            int8_bytes / HBM_BYTES_PER_S * 1e3, floor)
 
 
 def reset_launch_counts() -> None:

@@ -14,7 +14,10 @@ Every output has a fixed size and a validity mask.  Each top-k takes the
 same set and the same order as the JAX function (``ops/topk.py``), so the
 NMS sees its candidates in the same order and ties resolve alike.
 ``TPU.DECODE_APPROX_TOPK`` (the JAX package's approximate top-k) is not
-ported: ``DecodeSpec.from_config`` raises when it is set.
+ported: ``DecodeSpec.from_config`` raises when it is set.  ``skip_nms``
+is JAX's diagnostic (``dafne_tpu/ops/postprocess.py:53,228``): keep =
+valid, the same program without suppression, which the profiler's
+``eval_roofline`` differences against the full one; never a serving mode.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ class DecodeSpec:
     nms_group_candidates: int = 0  # > 0: per-class-group NMS with this budget
     # (ops/nms.py::rotated_nms_grouped_batched); 0: the global-cap path
     class_merge: Tuple[Tuple[int, int], ...] = ((5, 4),)
+    skip_nms: bool = False  # diagnostic only: keep = valid (no suppression)
 
     @classmethod
     def from_config(cls, cfg, train: bool = False) -> "DecodeSpec":
@@ -163,7 +167,9 @@ def decode_detections(head_out: Dict[str, List[torch.Tensor]], spec: DecodeSpec,
     coordinates if scale_xy [N, 2] is given), hboxes [.., 4], scores,
     classes, centerness, locations, valid."""
     cand = nms_candidates(head_out, spec)
-    if spec.nms_group_candidates > 0:
+    if spec.skip_nms:
+        keep = cand["valid"]
+    elif spec.nms_group_candidates > 0:
         keep = rotated_nms_grouped_batched(
             cand["corners"], cand["scores"], cand["classes"], cand["valid"],
             spec.nms_threshold, spec.class_merge, spec.num_classes,

@@ -26,7 +26,9 @@ sampling and the level filter: assign.pair_counts).
 --root imports dafne_torch from another checkout, such as a parent commit
 unpacked with ``git archive``, so that two versions compare in one call on
 one card; the inputs are built by this checkout's chip_smoke.py helpers
-either way.  Prints one JSON line.
+either way, and the device times come from the checkout's
+``utils/measure.py::device_ms`` (so --root needs that module).  Prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ BATCH, CANVAS, GROUP_K, M_GT = 8, 1024, 512, 256
 
 
 def _chip_smoke():
-    """This checkout's chip_smoke.py, for its input mixes and device_ms."""
+    """This checkout's chip_smoke.py, for its input mixes."""
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -105,6 +107,7 @@ def time_k2(smoke, inputs, reps):
     import torch
 
     from dafne_torch.ops.kernels import quad_nms as K
+    from dafne_torch.utils.measure import device_ms
 
     if hasattr(K, "suppression_bits_2d_cuda"):  # bit rows out
         k2, name, as_bits = K.suppression_bits_2d_cuda, "suppression_bits_2d_kernel", True
@@ -120,9 +123,9 @@ def time_k2(smoke, inputs, reps):
         torch.cuda.empty_cache()
         out[mix] = {"shape": list(classes.shape), "equal_to_plain": equal,
                     **event_stats(fn, reps),
-                    "device_ms": smoke.device_ms(fn, name),
-                    "device_busy_ms": smoke.device_ms(fn, ""),
-                    "k1_device_ms": smoke.device_ms(
+                    "device_ms": device_ms(fn, name),
+                    "device_busy_ms": device_ms(fn, "", launches=None),
+                    "k1_device_ms": device_ms(
                         lambda: K.suppression_bits_cuda(corners, classes, thr),
                         "suppression_bits_kernel")}
     return out
@@ -138,6 +141,7 @@ def time_k3(smoke, reps):
     from dafne_torch.engine.trainer import make_location_tables
     from dafne_torch.ops.kernels import assign as A
     from dafne_torch.ops.targets import AssignmentSpec
+    from dafne_torch.utils.measure import device_ms
 
     cfg = get_cfg()
     cfg.merge_from_list(smoke.DOTA_1024)
@@ -164,8 +168,8 @@ def time_k3(smoke, reps):
         out[mix] = {"equal_to_plain": bool(torch.equal(km, pm) and torch.equal(ka, pa)),
                     "positives": int((km < A.INF).sum()), "pairs": pairs,
                     **event_stats(fn, reps),
-                    "device_ms": smoke.device_ms(fn, "assign_argmin_kernel"),
-                    "device_busy_ms": smoke.device_ms(fn, "")}
+                    "device_ms": device_ms(fn, "assign_argmin_kernel"),
+                    "device_busy_ms": device_ms(fn, "", launches=None)}
     return out
 
 

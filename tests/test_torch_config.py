@@ -119,7 +119,9 @@ def test_port_imports_nothing_of_jax():
               "dafne_torch.utils.notify", "dafne_torch.layers.quant",
               "dafne_torch.ops.kernels.quant", "dafne_torch.tools.calibrate_int8",
               "dafne_torch.tools.int8_canary", "dafne_torch.tools.tta_canary",
-              "dafne_torch.tools.gen_canary"):
+              "dafne_torch.tools.gen_canary", "dafne_torch.tools.analyze_model",
+              "dafne_torch.tools.benchmark", "dafne_torch.tools.train_step_profile",
+              "dafne_torch.tools.ablate_train_step", "dafne_torch.utils.measure"):
         assert m in modules
 
 

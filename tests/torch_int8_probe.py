@@ -44,8 +44,32 @@ TTA canary's ladder).
 measures how far int8 mAP moves between equivalent programs on the same
 checkpoint and scales JSON: JAX's eval eager against jitted, and both
 packages on the weights drifted by about an ulp (each float tensor times
-1 + eps * N(0, 1)), in float32, int8 dynamic and int8 static.  ``split``
-needs only torch; ``probe`` and ``spread`` need both packages.
+1 + eps * N(0, 1)), in float32, int8 dynamic and int8 static
+(``--modes int8_dynamic --drift-only``: float32 and dynamic int8 on the
+drifted weights alone).
+
+    JAX_PLATFORMS=cpu python tests/torch_int8_probe.py parting \
+        --weights probe_w0.pt probe_w1.pt probe_w2.pt [--out output/int8_parting.json]
+
+finds, scene by scene in dynamic int8, where the two packages part: each
+package's model runs free on one scene, and the first int8 site whose
+quantized input differs is the parting site, with the module that
+produced that input.  Every float module (conv, FrozenBN, GroupNorm) and
+every int8 site is also run on the other package's input: the port's
+module on JAX's input to the same module, against JAX's output, as
+max |port - JAX| in float32 spacings (ulps) at the output's largest
+magnitude, so that an op that computes another function shows as more
+than rounding.
+
+    JAX_PLATFORMS=cpu python tests/torch_int8_probe.py gn --weights ... [--scenes 2]
+
+holds each GroupNorm of the head, on the port's inputs to it (float32, the
+first scenes), against float64: the port's module and flax's
+``GroupNorm`` (jitted, as JAX's eval step runs it), in float32 spacings at
+the output's largest magnitude.  flax computes var = E[x^2] - E[x]^2
+(``use_fast_variance``), whose rounding grows with mean / std; the port's
+``F.group_norm`` computes E[(x - mean)^2].  ``split`` needs only torch;
+``probe``, ``spread``, ``parting`` and ``gn`` need both packages.
 """
 
 from __future__ import annotations
@@ -313,12 +337,14 @@ def probe(weight_paths, out: str, opts=(), tta: bool = False) -> dict:
     return result
 
 
-def spread(weight_paths, out: str, seeds, eps: float = DRIFT_EPS) -> dict:
+def spread(weight_paths, out: str, seeds, eps: float = DRIFT_EPS,
+           int8_modes=("int8_dynamic", "int8_static"), drift_only: bool = False) -> dict:
     """How far int8 mAP moves between equivalent programs, on the CPU in
     float32, with one scales JSON (the port's calibration on 2 batches):
-    JAX's ``do_test`` eager (``jax.disable_jit``) against jitted, and both
-    packages on the weights drifted by an ulp, each float tensor times
-    (1 + `eps` * N(0, 1)) at each of `seeds` (torch generators)."""
+    JAX's ``do_test`` eager (``jax.disable_jit``) against jitted (unless
+    `drift_only`), and both packages on the weights drifted by an ulp,
+    each float tensor times (1 + `eps` * N(0, 1)) at each of `seeds`
+    (torch generators), in float32 and each of `int8_modes`."""
     import jax
 
     from dafne_tpu.config import load_config
@@ -355,6 +381,7 @@ def spread(weight_paths, out: str, seeds, eps: float = DRIFT_EPS) -> dict:
                                              MIN_CHANNELS))
     modes = {"float32": {}, "int8_dynamic": {"EVAL_INT8": True},
              "int8_static": {"EVAL_INT8": True, "EVAL_INT8_SCALES": scales_path}}
+    modes = {m: v for m, v in modes.items() if m == "float32" or m in int8_modes}
 
     def evaluate(pkg, mode, tag, params=None, batch_stats=None, eager=False):
         c = copy.deepcopy(tcfg if pkg == "torch" else jcfg)
@@ -374,9 +401,10 @@ def spread(weight_paths, out: str, seeds, eps: float = DRIFT_EPS) -> dict:
         return float(res["mAP"])
 
     params, batch_stats = params_to_flax(model)
-    jax_programs = {how: {mode: evaluate("jax", mode, how, params, batch_stats or None,
-                                         eager=how == "eager") for mode in modes}
-                    for how in ("eager", "jit")}
+    jax_programs = {} if drift_only else {
+        how: {mode: evaluate("jax", mode, how, params, batch_stats or None,
+                             eager=how == "eager") for mode in modes}
+        for how in ("eager", "jit")}
     drift = {}
     for seed in seeds:
         g = torch.Generator().manual_seed(seed)
@@ -389,20 +417,253 @@ def spread(weight_paths, out: str, seeds, eps: float = DRIFT_EPS) -> dict:
                                                  batch_stats or None) for mode in modes}
                             for pkg in ("torch", "jax")}
 
+    int8 = [m for m in modes if m != "float32"]
+
     def drops(maps):
-        return {m: maps["float32"] - maps[m] for m in ("int8_dynamic", "int8_static")}
+        return {m: maps["float32"] - maps[m] for m in int8}
 
     ranges = {pkg: {m: [min(drops(d[pkg])[m] for d in drift.values()),
                         max(drops(d[pkg])[m] for d in drift.values())]
-                    for m in ("int8_dynamic", "int8_static")} for pkg in ("torch", "jax")}
+                    for m in int8} for pkg in ("torch", "jax")}
     result = {"checkpoint_sha256": digest, "checkpoint_step": step, "calibration_batches":
               CALIB_BATCHES, "jax_programs": jax_programs,
               "jax_eager_minus_jit": {m: jax_programs["eager"][m] - jax_programs["jit"][m]
-                                      for m in modes},
+                                      for m in modes} if jax_programs else {},
               "drift_eps": eps, "drift": drift, "drift_drop_ranges": ranges}
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def ulps(got: np.ndarray, want: np.ndarray) -> dict:
+    """max |got - want| in float32 spacings at max |want|, with the count of
+    elements that differ."""
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    top = float(np.abs(want).max()) if want.size else 0.0
+    spacing = float(np.spacing(np.float32(top))) if top > 0 else float(np.spacing(np.float32(1)))
+    return {"max_abs": float(d.max()) if d.size else 0.0, "ulps": float(d.max() / spacing)
+            if d.size else 0.0, "differ": int((d > 0).sum()), "of": int(d.size),
+            "max_out": top}
+
+
+def parting(weight_paths, out: str, n_scenes: int = 32, opts=()) -> dict:
+    """Dynamic int8, scene by scene: where the packages part, and each
+    module's own disagreement on the other package's input (module
+    docstring)."""
+    import jax.numpy as jnp
+    import flax.linen as fnn
+
+    from dafne_tpu.config import load_config
+    from dafne_tpu.data.registry import register_all_datasets as jax_register
+    from dafne_tpu.layers import quant as JQ
+    from dafne_tpu.models import build_model as jax_build_model
+
+    from dafne_torch.config import get_cfg
+    from dafne_torch.data import get_dataset, register_all_datasets
+    from dafne_torch.engine.inference import make_eval_step
+    from dafne_torch.layers import quant as Q
+    from dafne_torch.models import build_model
+    from dafne_torch.models.layers import FrozenBN
+    from dafne_torch.utils.weights import params_to_flax
+
+    sd, digest, step = join(weight_paths)
+    recipe = os.path.join(ROOT, "configs", "synthetic", "base.yaml")
+    tcfg = get_cfg()
+    tcfg.merge_from_file(recipe)
+    tcfg.merge_from_list(CANARY_OPTS + list(opts) + ["TPU.EVAL_INT8", "True"])
+    jcfg = load_config(recipe, freeze=False)
+    jcfg.merge_from_list(CANARY_OPTS + list(opts) + ["TPU.EVAL_INT8", "True"])
+    register_all_datasets(tcfg)
+    jax_register(jcfg)
+    model = build_model(tcfg, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    model.eval()
+    params, batch_stats = params_to_flax(model)
+    variables = {"params": params, **({"batch_stats": batch_stats} if batch_stats else {})}
+    jmodel = jax_build_model(jcfg)
+    (name,) = tcfg.DATASETS.TEST
+    records = get_dataset(name, tcfg)[:n_scenes]
+    hw = tuple(records[0]["image"].shape[:2])
+    qmodel = make_eval_step(model, tcfg, hw).program.model
+    modules = dict(qmodel.named_modules())
+    kinds = (torch.nn.Conv2d, torch.nn.GroupNorm, FrozenBN, Q.Int8Conv2d)
+    checked = {n for n, m in modules.items() if isinstance(m, kinds)}
+
+    scenes, per_module = [], {}
+    for i, rec in enumerate(records):
+        image = np.ascontiguousarray(rec["image"][None].astype(np.float32))
+        # the port, free-running: each int8 site's input, and which module produced it
+        producer, sites_t = {}, {}
+
+        def record_output(mod_name):
+            def hook(mod, args, output):
+                if isinstance(output, torch.Tensor):
+                    producer[id(output)] = mod_name
+            return hook
+
+        def record_site(mod_name):
+            def pre(mod, args):
+                sites_t.setdefault(Q.module_site(mod_name), (
+                    args[0].float().permute(0, 2, 3, 1).numpy().copy(),
+                    producer.get(id(args[0]), "?")))
+            return pre
+
+        hooks = [m.register_forward_hook(record_output(n)) for n, m in modules.items() if n]
+        hooks += [m.register_forward_pre_hook(record_site(n)) for n, m in modules.items()
+                  if isinstance(m, Q.Int8Conv2d)]
+        with torch.inference_mode():
+            qmodel(torch.from_numpy(image))
+        for h in hooks:
+            h.remove()
+        # JAX, free-running (eager): every module call's first input and output
+        calls, order = {}, []
+
+        def recorder(next_fun, args, kwargs, context):
+            y = next_fun(*args, **kwargs)
+            path = "/".join(context.module.path or ())
+            if (context.method_name == "__call__" and args and path not in calls
+                    and hasattr(args[0], "shape") and hasattr(y, "shape")):
+                calls[path] = (np.asarray(args[0], np.float32), np.asarray(y, np.float32))
+            return y
+
+        real = JQ._quantized_call
+
+        def site_order(next_fun, args, kwargs, mod, x, act_amax=None):
+            order.append(JQ.module_site(mod))
+            return real(next_fun, args, kwargs, mod, x, act_amax)
+
+        JQ._quantized_call = site_order
+        try:
+            with fnn.intercept_methods(recorder):
+                with JQ.quantized_eval_scope(
+                        enabled=True, min_channels=int(jcfg.TPU.EVAL_INT8_MIN_CHANNELS)):
+                    jmodel.apply(variables, jnp.asarray(image))
+        finally:
+            JQ._quantized_call = real
+        # the first site whose quantized input differs
+        first = None
+        for site in order:
+            x_t, prod = sites_t[site]
+            x_j = calls[site][0]
+            q_t = np.asarray(JQ.quantize_tensor_dynamic(jnp.asarray(x_t))[0])
+            q_j = np.asarray(JQ.quantize_tensor_dynamic(jnp.asarray(x_j))[0])
+            flipped = int((q_t != q_j).sum())
+            if flipped:
+                first = {"site": site, "flipped": flipped, "values": int(q_t.size),
+                         "input": ulps(x_t, x_j), "producer": prod,
+                         "sites_before": order.index(site)}
+                break
+        # every module on the other package's input
+        own = {}
+        with torch.inference_mode():
+            for n in sorted(checked):
+                path = n.replace(".", "/")
+                if path not in calls:
+                    continue
+                x_j, y_j = calls[path]
+                y_t = modules[n](torch.from_numpy(np.ascontiguousarray(
+                    x_j.transpose(0, 3, 1, 2)))).float().permute(0, 2, 3, 1).numpy()
+                own[n] = ulps(y_t, y_j)
+                worst = per_module.setdefault(n, {"type": type(modules[n]).__name__,
+                                                  "ulps": 0.0, "max_abs": 0.0})
+                worst["ulps"] = max(worst["ulps"], own[n]["ulps"])
+                worst["max_abs"] = max(worst["max_abs"], own[n]["max_abs"])
+        if first is not None:  # the producer (a block, say) alone on JAX's input, and its parts
+            prod = first["producer"]
+            path = prod.replace(".", "/")
+            if prod in own:
+                first["producer_on_jax_input"] = own[prod]
+            elif path in calls:
+                with torch.inference_mode():
+                    y_t = modules[prod](torch.from_numpy(np.ascontiguousarray(
+                        calls[path][0].transpose(0, 3, 1, 2)))).float().permute(0, 2, 3, 1)
+                first["producer_on_jax_input"] = ulps(y_t.numpy(), calls[path][1])
+            first["producer_parts_on_jax_input"] = {
+                n: own[n] for n in own if n.startswith(prod + ".")}
+        scene = {"scene": i, "image_id": rec.get("image_id"), "first_parting": first,
+                 "sites": len(order),
+                 "int8_sites_bit_equal_on_jax_input": all(
+                     own[n]["differ"] == 0 for n in own if isinstance(modules[n], Q.Int8Conv2d))}
+        scenes.append(scene)
+        print(json.dumps(scene), flush=True)
+
+    by_type = {}
+    for n, w in per_module.items():
+        t = by_type.setdefault(w["type"], {"modules": 0, "max_ulps": 0.0, "worst": None})
+        t["modules"] += 1
+        if w["ulps"] >= t["max_ulps"]:
+            t["max_ulps"], t["worst"] = w["ulps"], n
+    result = {"checkpoint_sha256": digest, "checkpoint_step": step, "mode": "int8_dynamic",
+              "compute_dtype": tcfg.TPU.COMPUTE_DTYPE, "scenes": scenes,
+              "parting_sites": sorted({(s["first_parting"] or {}).get("site") or "none"
+                                       for s in scenes}),
+              "module_ulps_by_type": by_type, "module_ulps": per_module}
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({k: v for k, v in result.items() if k not in ("scenes", "module_ulps")}),
+          flush=True)
+    return result
+
+
+def gn_rounding(weight_paths, n_scenes: int = 2) -> dict:
+    """Each head GroupNorm against float64 on the port's inputs to it
+    (module docstring): {module: port ulps, JAX ulps, port - JAX ulps,
+    largest |mean| / std of a group}, and the worst of each."""
+    import jax
+    import jax.numpy as jnp
+    import flax.linen as fnn
+
+    from dafne_torch.config import get_cfg
+    from dafne_torch.data import get_dataset, register_all_datasets
+    from dafne_torch.models import build_model
+
+    sd, digest, step = join(weight_paths)
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", "synthetic", "base.yaml"))
+    cfg.merge_from_list(CANARY_OPTS)
+    register_all_datasets(cfg)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    model.eval()
+    (name,) = cfg.DATASETS.TEST
+    images = np.stack([r["image"] for r in get_dataset(name, cfg)[:n_scenes]]).astype(np.float32)
+    inputs = {}
+
+    def record(mod_name):
+        def pre(mod, args):
+            inputs.setdefault(mod_name, args[0].detach().float().clone())
+        return pre
+
+    hooks = [m.register_forward_pre_hook(record(n)) for n, m in model.named_modules()
+             if isinstance(m, torch.nn.GroupNorm)]
+    with torch.inference_mode():
+        model(torch.from_numpy(images))
+    for h in hooks:
+        h.remove()
+    rows = {}
+    for n, x in inputs.items():
+        m = model.get_submodule(n)
+        g = x.double().reshape(x.shape[0], m.num_groups, -1)
+        mu = g.mean(-1, keepdim=True)
+        y64 = ((g - mu) / torch.sqrt(((g - mu) ** 2).mean(-1, keepdim=True) + m.eps)).reshape(
+            x.shape) * m.weight.double()[None, :, None, None] + m.bias.double()[None, :, None, None]
+        with torch.inference_mode():
+            y_t = m(x).double()
+        flax_gn = fnn.GroupNorm(num_groups=m.num_groups, epsilon=m.eps)
+        v = {"params": {"scale": jnp.asarray(m.weight.detach().numpy()),
+                        "bias": jnp.asarray(m.bias.detach().numpy())}}
+        y_j = torch.from_numpy(np.asarray(jax.jit(flax_gn.apply)(
+            v, jnp.asarray(x.permute(0, 2, 3, 1).numpy())))).permute(0, 3, 1, 2).double()
+        spacing = float(np.spacing(np.float32(y64.abs().max().item())))
+        rows[n] = {"port_ulps": float((y_t - y64).abs().max()) / spacing,
+                   "jax_ulps": float((y_j - y64).abs().max()) / spacing,
+                   "port_minus_jax_ulps": float((y_t - y_j).abs().max()) / spacing,
+                   "max_mean_over_std": float((g.mean(-1).abs() / g.std(-1)).max())}
+    result = {"checkpoint_sha256": digest, "scenes": n_scenes, "modules": rows,
+              "worst": {k: max(r[k] for r in rows.values()) for k in next(iter(rows.values()))}}
     print(json.dumps(result), flush=True)
     return result
 
@@ -429,11 +690,30 @@ def main(argv=None) -> int:
     r.add_argument("--seeds", default="0,1,2,3", help="the drifted weights' generator seeds")
     r.add_argument("--eps", type=float, default=DRIFT_EPS)
     r.add_argument("--out", default=os.path.join(ROOT, "output", "int8_spread.json"))
+    r.add_argument("--modes", default="int8_dynamic,int8_static",
+                   help="the int8 modes evaluated beside float32")
+    r.add_argument("--drift-only", action="store_true",
+                   help="only the drifted weights (no JAX eager against jitted)")
+    t = sub.add_parser("parting")
+    t.add_argument("--weights", nargs="+", required=True)
+    t.add_argument("--scenes", type=int, default=32, help="the first N of the 32 scenes")
+    t.add_argument("--out", default=os.path.join(ROOT, "output", "int8_parting.json"))
+    t.add_argument("opts", nargs=argparse.REMAINDER, default=[],
+                   help="KEY VALUE overrides of both packages' configs (a rehearsal at a "
+                   "narrow width)")
+    u = sub.add_parser("gn")
+    u.add_argument("--weights", nargs="+", required=True)
+    u.add_argument("--scenes", type=int, default=2)
     a = p.parse_args(argv)
     if a.cmd == "split":
         split(a.checkpoint_dir, a.part, a.parts, a.out)
     elif a.cmd == "spread":
-        spread(a.weights, a.out, [int(x) for x in a.seeds.split(",")], a.eps)
+        spread(a.weights, a.out, [int(x) for x in a.seeds.split(",")], a.eps,
+               a.modes.split(","), a.drift_only)
+    elif a.cmd == "gn":
+        gn_rounding(a.weights, a.scenes)
+    elif a.cmd == "parting":
+        parting(a.weights, a.out, a.scenes, a.opts)
     else:
         probe(a.weights, a.out, a.opts, a.tta)
     return 0

@@ -1413,6 +1413,10 @@ def phase_export(card, bias_minus_2_checkpoint):
 INT8_SEED = 22  # the torch seed of phase 22's model
 INT8_STEPS = 3  # timed eval steps of each program in (b)
 INT8_CALIB_BATCHES = 2  # calibration batches of 8 on the card
+# int8_conv's mma.sync kernel takes what a tensor map cannot describe, and
+# no site of the recipes does (their C are multiples of 16, their strides 1
+# or 2): (C, O, kernel, stride) of x_q [8, 64, 64, C] to hold it on
+INT8_MMA_SYNC_SHAPES = [(72, 96, 3, 1), (100, 70, 1, 2), (67, 64, 3, 3)]
 INT8_NARROW_MIN = 32  # EVAL_INT8_MIN_CHANNELS of the narrow card-against-CPU check
 INT8_BODIES = ("scene0.png", "text_1.jpg")  # request bodies of (d)
 
@@ -1507,6 +1511,15 @@ def int8_times(x, mod, card, what):
     if (kh, kw) == (1, 1) and stride == [1, 1] and padding == [0, 0]:
         a2, b2 = xq.reshape(n * h * w, c), wq.reshape(o, c).t()
         library_ms = cuda_ms(lambda: torch._int_mm(a2, b2), reps=OP_REPS)
+    elif stride == [1, 1] and dilation == [1, 1]:
+        # the GEMM alone on a precomputed NHWC column matrix [N Ho Wo, KH KW C]
+        # (tap-major, w_q's order) x [KH KW C, O]
+        pad = F.pad(xq, (0, 0, padding[1], padding[1], padding[0], padding[0]))
+        a2 = torch.cat([pad[:, r:r + ho, q:q + wo] for r in range(kh) for q in range(kw)],
+                       -1).reshape(n * ho * wo, kh * kw * c)
+        b2 = wq.reshape(o, kh * kw * c).t()
+        library_ms = cuda_ms(lambda: torch._int_mm(a2, b2), reps=OP_REPS)
+        del pad, a2, b2
     wf = mod.weight_q.permute(0, 3, 1, 2).to(x.dtype).contiguous()
     bf = None if bias is None else bias.to(x.dtype)
     conv = {"ms": cuda_ms(lambda: QK.int8_conv_cuda(xq, xs, *conv_args), reps=OP_REPS),
@@ -1516,7 +1529,7 @@ def int8_times(x, mod, card, what):
             "bound_ms": bounds[by], "bound_by": by, "library_ms": library_ms,
             "bf16_conv_ms": cuda_ms(lambda: F.conv2d(x, wf, bf, stride, padding, dilation),
                                     reps=OP_REPS),
-            "shape": [n, c, h, w, o, kh, stride[0]]}
+            "shape": [n, c, h, w, o, kh, stride[0]], "path": QK.int8_conv_path(c, stride)}
     conv["tops"] = round(ops / (conv["ms"] * 1e-3) / 1e12, 1)
     log(f"[int8 {what}] x {list(x.shape)} {x.dtype} -> {o} channels, {kh}x{kw} stride {stride[0]} "
         f"({mod.mode} scale): quantize_act ms={q['ms']:.4f} device_ms={fmt_ms(q['device_ms'])} "
@@ -1524,10 +1537,12 @@ def int8_times(x, mod, card, what):
         f"written once); int8_conv ms={conv['ms']:.4f} device_ms={fmt_ms(conv['device_ms'])} "
         f"({conv['tops']} int8 TOPS on the events) plain_ms={conv['plain_ms']:.2f} bound_ms="
         f"{conv['bound_ms']:.4f} ({by}: {ops / 1e9:.1f} G int8 ops at 1,979 TOPS "
-        f"{bounds['operations']:.4f}, {nbytes / 1e6:.1f} MB at 3.35 TB/s {bounds['bytes']:.4f}); "
-        f"yardsticks the port never calls: torch._int_mm on the same [M, C] x [C, O] matrix "
-        f"{fmt_ms(library_ms)} (1x1 stride-1 sites only: s32 out, no epilogue), bf16 cuDNN conv of "
-        f"the same shape {conv['bf16_conv_ms']:.4f} (the time int8 has to beat) [{card}]")
+        f"{bounds['operations']:.4f}, {nbytes / 1e6:.1f} MB at 3.35 TB/s {bounds['bytes']:.4f}; "
+        f"the {conv['path']} kernel); yardsticks the port never calls: torch._int_mm on the same "
+        f"[M, C] x [C, O] matrix (1x1 stride-1) or on a precomputed NHWC column matrix "
+        f"[N Ho Wo, KH KW C] x [KH KW C, O] (3x3: the GEMM alone) {fmt_ms(library_ms)} (s32 out, "
+        f"no epilogue), bf16 cuDNN conv of the same shape {conv['bf16_conv_ms']:.4f} (the time int8 "
+        f"has to beat) [{card}]")
     return {"quantize": q, "conv": conv}
 
 
@@ -1608,20 +1623,40 @@ def phase_int8(card):
                  if k[3] == (1, 1) and k[4] == (1, 1) and k[0][2] == CANVAS // 16),
                 key=lambda v: v[0].numel())
         shapes = sorted({(k[0], k[2], k[3], k[4]) for k in sites})
+        paths = Counter(QK.int8_conv_path(s_[1], st) for s_, _, _, st in shapes)
         log(f"[int8 sites {mode}] {steps[mode].program.int8['sites']} "
             f"sites, {site_calls[mode]} calls per forward (the towers' convs once per level), "
             f"{len(sites)} distinct (input, conv) shapes, each quantize_act and int8_conv bit-equal "
-            f"to its plain version: {json.dumps([[list(s), o, list(k), list(st)] for s, o, k, st in shapes])} "
+            f"to its plain version, int8_conv's kernel per shape {json.dumps(paths)}: "
+            f"{json.dumps([[list(s), o, list(k), list(st)] for s, o, k, st in shapes])} "
             f"[{card}]")
         del sites
         torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED)
+    for c, o, k, st in INT8_MMA_SYNC_SHAPES:
+        xq = torch.randint(-127, 128, (b, 64, 64, c), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, (o, k, k, c), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        xs = torch.rand(b, generator=gen, device="cuda") * 1e-2
+        ws = torch.rand(o, generator=gen, device="cuda") * 1e-2
+        args = (xq, xs, wq, ws, torch.randn(o, generator=gen, device="cuda"), [st, st],
+                [k // 2, k // 2], [1, 1], torch.bfloat16)
+        before = QK.int8_conv_cuda.launches_by_path["mma_sync"]
+        if (not torch.equal(QK.int8_conv_cuda(*args), QK.int8_conv_plain(*args))
+                or QK.int8_conv_cuda.launches_by_path["mma_sync"] != before + 1):
+            raise SystemExit(f"int8_conv's mma.sync kernel at C {c}, O {o}, {k}x{k} stride {st}: "
+                             f"not bit-equal to its plain version, or another kernel ran")
+    log(f"[int8 mma.sync] int8_conv's mma.sync kernel bit-equal to its plain version at "
+        f"{json.dumps(INT8_MMA_SYNC_SHAPES)} ((C, O, kernel, stride) of x_q [{b}, 64, 64, C], bf16 "
+        f"out): shapes no site of the recipe has [{card}]")
     times = {what: int8_times(x, mod, card, what) for what, (x, mod) in timed.items()}
     del timed
     torch.cuda.empty_cache()
     phase_a = time.perf_counter() - phase_a
 
     # (b) the eval step at full width: bf16, int8 dynamic, int8 static
-    path_launches = {}
+    path_launches, kernel_launches = {}, {}
     summary = {}
     for mode, step in steps.items():
         with torch.inference_mode():
@@ -1633,16 +1668,20 @@ def phase_int8(card):
             peak = torch.cuda.max_memory_allocated() / 2**30
             launches = {"quantize_act": QK.quantize_act_cuda.launches,
                         "int8_conv": QK.int8_conv_cuda.launches}
+            by_kernel = dict(QK.int8_conv_cuda.launches_by_path)
             fwd_ms = host_ms(lambda: step.program.model(images), reps=INT8_STEPS)
         want = INT8_STEPS * site_calls.get(mode, 0)
-        if set(launches.values()) != {want}:
-            raise SystemExit(f"{mode}: launches {launches} in {INT8_STEPS} eval steps, not "
-                             f"{site_calls.get(mode, 0)} site calls x {INT8_STEPS}")
+        if set(launches.values()) != {want} or by_kernel["wgmma"] != want:
+            raise SystemExit(f"{mode}: launches {launches} (int8_conv's by kernel {by_kernel}) in "
+                             f"{INT8_STEPS} eval steps, not {site_calls.get(mode, 0)} site calls x "
+                             f"{INT8_STEPS}, all on the wgmma kernel (every site's shape)")
         path_launches[mode] = launches
+        kernel_launches[mode] = by_kernel
         summary[mode] = {"eval_step_ms": round(step_ms, 2), "forward_ms": round(fwd_ms, 2),
                          "sites": step.program.int8["sites"],
                          "site_calls_per_forward": site_calls.get(mode, 0),
-                         "launches": launches, "peak_memory_gib": round(peak, 2)}
+                         "launches": launches, "int8_conv_by_kernel": by_kernel,
+                         "peak_memory_gib": round(peak, 2)}
     log(f"[int8 eval] DOTA-1.0 1024 recipe (R-50, FPN P3-P7, GN towers, 15 classes, bf16, "
         f"{CANVAS}^2, batch {b}, seeded weights, class bias -2); calibration on "
         f"{INT8_CALIB_BATCHES} batches in {calib_s:.2f} s ({len(scales)} sites); host clock around "
@@ -1790,7 +1829,13 @@ def phase_int8(card):
             "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": 0.0,
             **{k: p3[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
-            **({"bf16_conv_ms": p3["bf16_conv_ms"]} if name == "int8_conv" else {}),
+            **({"library": "torch._int_mm on the P3 site's precomputed NHWC column matrix "
+                           "[N Ho Wo, 9C] x [9C, O]: the GEMM alone (s32 out)",
+                "bf16_conv_ms": p3["bf16_conv_ms"],
+                "launches_by_kernel": {  # the eval steps' launches of each of the two kernels
+                    k: sum(v[k] for v in kernel_launches.values()) for k in QK.CONV_PATHS},
+                "export_serve_by_kernel": healths["artifact"]["int8"]["int8_conv_by_kernel"]}
+               if name == "int8_conv" else {}),
             "at": "P3 tower 3x3 [8, 256, 128, 128] bf16, dynamic scale",
             "res4_1x1": {k: v for k, v in res4.items() if k not in ("shape", "tops")},
         })
@@ -2680,8 +2725,9 @@ def check_deform(card):
                      - cols.float()).abs().max())
     fwd = {"max_abs_err": 0.0,  # bit-equal, or the checks above exit
            "ms": cuda_ms(lambda: DK.deform_im2col_forward_cuda(x, off)),
-           "device_ms": device_ms(lambda: DK.deform_im2col_forward_cuda(x, off),
-                                  "deform_im2col_kernel"),
+           # both kernels of a call: the channels-last copy and the gather
+           "device_ms": device_ms(lambda: DK.deform_im2col_forward_cuda(x, off), "deform_im2col_",
+                                  launches=len(DK.FORWARD_KERNELS)),
            "plain_ms": cuda_ms(lambda: deform_im2col_plain(x, off), reps=5, warmup=1),
            "library_ms": cuda_ms(lambda: F.grid_sample(x, grid, mode="bilinear",
                                                        padding_mode="zeros", align_corners=True))}

@@ -42,6 +42,11 @@ OPS_FORWARD, OPS_FORWARD_MASK = 15, 1
 OPS_BACKWARD, OPS_BACKWARD_MASK = 27, 13
 
 
+#: the forward's kernels, in launch order: the channels-last copy of x,
+#: then the gather (a profiler trace of one call holds both)
+FORWARD_KERNELS = ("deform_im2col_nhwc_kernel", "deform_im2col_gather_kernel")
+
+
 def forward_bytes(n: int, c: int, h: int, w: int, itemsize: int, mask: bool) -> int:
     """The forward's bytes, each input read once and the columns written
     once: x, the f32 offsets, the mask, the 9C columns."""
@@ -62,7 +67,7 @@ def _lib():
     lib = load("deform_conv")
     if not getattr(lib, "_dafne_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dafne_deform_im2col.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.dafne_deform_im2col.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.dafne_deform_im2col.restype = i
         lib.dafne_deform_im2col_backward.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.dafne_deform_im2col_backward.restype = i
@@ -90,17 +95,29 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def nhwc_channels(c: int, dtype: torch.dtype) -> int:
+    """The channels of a pixel in the forward's channels-last copy of x: C
+    rounded up to 16 bytes, one load of a lane."""
+    per_load = 128 // torch.finfo(dtype).bits
+    return -(-c // per_load) * per_load
+
+
 def deform_im2col_forward_cuda(x: torch.Tensor, offsets: torch.Tensor,
                                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Columns [N, 9C, H, W] in x's dtype (see ``deform_im2col_plain``);
     x contiguous f32/bf16/f16, offsets contiguous f32 [N, 18, H, W], mask
-    None or contiguous [N, 9, H, W] in x's dtype, all on one CUDA device."""
+    None or contiguous [N, 9, H, W] in x's dtype, all on one CUDA device.
+    The kernel gathers from a channels-last copy of x made in the same
+    call, in scratch allocated here."""
     n, c, h, w = _check(x, offsets, mask)
     lib = _lib()
     with torch.cuda.device(x.device):
         cols = torch.empty((n, 9 * c, h, w), dtype=x.dtype, device=x.device)
+        x_nhwc = torch.empty((n, h, w, nhwc_channels(c, x.dtype)), dtype=x.dtype,
+                             device=x.device)
         code = lib.dafne_deform_im2col(x.data_ptr(), offsets.data_ptr(), _ptr(mask),
-                                       cols.data_ptr(), n, c, h, w, DTYPE_CODES[x.dtype],
+                                       cols.data_ptr(), x_nhwc.data_ptr(), n, c, h, w,
+                                       DTYPE_CODES[x.dtype],
                                        torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"deform_im2col_forward_cuda: CUDA launch failed with cudaError {code}")

@@ -97,6 +97,50 @@ def int8_conv_plain(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: to
     return y.to(out_dtype)
 
 
+#: the wgmma kernel's block tile: output pixels, and the channels of one
+#: stage (one 128-byte swizzled row of each operand)
+WGMMA_TILE_M, WGMMA_TILE_K = 128, 128
+#: int8_conv's two kernels: int8_conv_wgmma_kernel and int8_conv_kernel
+CONV_PATHS = ("wgmma", "mma_sync")
+
+
+def int8_conv_path(c: int, stride: Sequence[int]) -> str:
+    """The kernel ``int8_conv_cuda`` launches for x_q with `c` channels and
+    this stride, by shape: "wgmma" (TMA-fed tiles) where tensor maps can
+    describe x_q and w_q, "mma_sync" (the first design) elsewhere.  A
+    tensor map needs each dimension's byte stride a multiple of 16 (x_q's
+    and w_q's rows are C bytes: C a multiple of 16, so at least 16), and a
+    box of at most 256 elements: a run of 128 output pixels at stride s
+    spans 128 s input columns, so s is 1 or 2."""
+    if c % 16 == 0 and all(s in (1, 2) for s in stride):
+        return "wgmma"
+    return "mma_sync"
+
+
+def int8_conv_tiles(n: int, stride: Sequence[int], ho: int, wo: int) -> dict:
+    """The wgmma kernel's tile geometry, as the wrapper hands it in.
+
+    A block's pixel tile is `tile` = (bh, bw): bh output rows of bw pixels,
+    one contiguous run of the NCHW output plane: a run of 128 pixels of a
+    row where Wo >= 128, else bh = 128 // Wo whole rows.  x_q's tensor map
+    spans (C, W, H, N), innermost first; one box per (tap, 128-channel
+    slice) is `box` elements at `element_strides` (the conv's strides:
+    TMA loads ceil(box / stride) elements, bw x bh pixels of 128 channels),
+    from the coordinates below; what lies outside the map
+    (the zero padding, channels past C) comes as zeros.  The kernel puts
+    the box of pixel tile t = (n, th, tw) at tap (r, q) and channel slice
+    c0 at (c0, tw bw sw - pw + q dw, th bh sh - ph + r dh, n), negative
+    where the padding lies.  w_q's map spans (C, KH*KW, O) in boxes of
+    (128, 1, 128)."""
+    sh, sw = stride
+    bw = min(wo, WGMMA_TILE_M)
+    bh = WGMMA_TILE_M // bw if bw == wo else 1
+    tiles_h, tiles_w = -(-ho // bh), -(-wo // bw)
+    return {"tile": (bh, bw), "box": (WGMMA_TILE_K, bw * sw, bh * sh, 1),
+            "element_strides": (1, sw, sh, 1), "tiles_h": tiles_h, "tiles_w": tiles_w,
+            "pixel_tiles": n * tiles_h * tiles_w}
+
+
 def _lib():
     lib = load("int8_conv")
     if not getattr(lib, "_dafne_typed", False):
@@ -155,8 +199,19 @@ def int8_conv_cuda(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: tor
     ho, wo = conv_out_hw(h, w, kh, kw, stride, padding, dilation)
     if min(n, c, o, ho, wo) < 1:
         raise ValueError(f"int8_conv: empty output {(n, o, ho, wo)} of x_q {tuple(xq.shape)}")
+    path = int8_conv_path(c, stride)
+    geometry = [n, h, w, c, o, kh, kw, *stride, *padding, *dilation, ho, wo]
+    if path == "wgmma":
+        for name, t in (("x_q", xq), ("w_q", wq)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"int8_conv: {name} at {t.data_ptr():#x} is not 16-byte aligned, "
+                                 f"as a tensor map needs")
+        tiles = int8_conv_tiles(n, stride, ho, wo)
+        geometry += [1, *tiles["tile"], *tiles["box"], *tiles["element_strides"]]
+    else:
+        geometry += [0] * 11
     lib = _lib()
-    geometry = (ctypes.c_int * 15)(n, h, w, c, o, kh, kw, *stride, *padding, *dilation, ho, wo)
+    geometry = (ctypes.c_int * len(geometry))(*geometry)
     with torch.cuda.device(xq.device):
         y = torch.empty((n, o, ho, wo), dtype=out_dtype, device=xq.device)
         code = lib.dafne_int8_conv(xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
@@ -164,18 +219,23 @@ def int8_conv_cuda(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: tor
                                    ctypes.cast(geometry, ctypes.c_void_p), DTYPE_CODES[out_dtype],
                                    torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"int8_conv_cuda: CUDA launch failed with cudaError {code}")
+        raise RuntimeError(f"int8_conv_cuda: the {path} kernel's launch failed with code {code} "
+                           f"(a cudaError_t; 10000: no cuTensorMapEncodeTiled; 20000 + a "
+                           f"CUresult: a tensor map refused)")
     int8_conv_cuda.launches += 1
+    int8_conv_cuda.launches_by_path[path] += 1
     return y
 
 
 quantize_act_cuda.launches = 0
 int8_conv_cuda.launches = 0
+int8_conv_cuda.launches_by_path = dict.fromkeys(CONV_PATHS, 0)
 
 
 def reset_launch_counts() -> None:
     quantize_act_cuda.launches = 0
     int8_conv_cuda.launches = 0
+    int8_conv_cuda.launches_by_path = dict.fromkeys(CONV_PATHS, 0)
 
 
 def quantize_bytes(n: int, c: int, h: int, w: int, itemsize: int) -> int:

@@ -219,7 +219,8 @@ def make_server(service: DetectorService, host: str = "127.0.0.1", port: int = 8
                 "int8": {"mode": int8["mode"], "min_channels": int8.get("min_channels"),
                          "sites": int8.get("sites", 0),
                          "launches": {"quantize_act": quant.quantize_act_cuda.launches,
-                                      "int8_conv": quant.int8_conv_cuda.launches}},
+                                      "int8_conv": quant.int8_conv_cuda.launches},
+                         "int8_conv_by_kernel": dict(quant.int8_conv_cuda.launches_by_path)},
             })
 
         def do_POST(self):

@@ -14,7 +14,17 @@ bit: JAX's eager ops round each result to bfloat16 as torch's do (under
 within rtol 1e-4, atol 1e-5 of the gradient's scale.  On the card the
 kernel is held to the plain version bit for bit (forward) by
 ``chip_smoke.py``.
+
+The forward kernel's arithmetic and its wrapper, without a card: the packed
+bf16x2 / f16x2 multiply and add it uses (one rounding of the exact result)
+give what torch's bf16 and f16 ops give (the f32 result rounded), on random
+finite bit patterns with subnormals and wide exponent gaps among them; the
+wrapper raises on a failed launch (a stubbed library).
 """
+
+import contextlib
+import types
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -196,3 +206,75 @@ def test_dispatch_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         K.deform_im2col_backward_cuda(x, offsets, None, torch.zeros(1, 27, 4, 5))
     assert K.deform_im2col_forward_cuda.launches == before
+
+
+# ---- the forward kernel's arithmetic and its wrapper, without a card --------------
+
+#: (significand bits with the hidden one, least normal exponent, greatest
+#: exponent) of the packed types
+FORMATS = {torch.bfloat16: (8, -126, 127), torch.float16: (11, -14, 15)}
+
+
+def _round_once(x: Fraction, dtype) -> float:
+    """x rounded once to `dtype`, to nearest with ties to even (what the
+    packed mul.rn / add.rn instructions return): exact rational arithmetic."""
+    bits, emin, emax = FORMATS[dtype]
+    if x == 0:
+        return 0.0
+    mag = abs(x)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    if Fraction(2) ** e > mag:
+        e -= 1  # now 2^e <= |x| < 2^(e + 1)
+    quantum = Fraction(2) ** (max(e, emin) - (bits - 1))
+    y = round(x / quantum) * quantum  # Fraction rounds half to even
+    return float("inf") * np.sign(float(x)) if abs(y) >= Fraction(2) ** (emax + 1) else float(y)
+
+
+def _operands(dtype, n, rng):
+    """2 x n finite values of `dtype`: random bit patterns (a quarter of
+    them subnormal), then pairs whose products fall about the least normal
+    number, where f32's own rounding could meet the dtype's."""
+    _, emin, _ = FORMATS[dtype]
+    raw = rng.randint(0, 1 << 16, (2, n)).astype(np.uint16)
+    raw[:, : n // 4] &= ~np.uint16(0x7F80 if dtype == torch.bfloat16 else 0x7C00)
+    near = np.ldexp(rng.uniform(1, 2, (2, n)) * rng.choice([-1, 1], (2, n)),
+                    rng.randint(emin // 2 - 6, emin // 2 + 2, (2, n)))
+    v = torch.cat([torch.from_numpy(raw.view(np.int16)).view(dtype),
+                   torch.from_numpy(near.astype(np.float32)).to(dtype)], 1)
+    return v[:, torch.isfinite(v.float()).all(0)]
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_packed_ops_round_as_torch(dtype, op):
+    a, b = _operands(dtype, 2000, np.random.RandomState(11 + (op == "add")))
+    got = (a * b) if op == "mul" else (a + b)  # torch: the f32 result, rounded
+    want = [_round_once(Fraction(float(x)) * Fraction(float(y)) if op == "mul"
+                        else Fraction(float(x)) + Fraction(float(y)), dtype)
+            for x, y in zip(a.float().tolist(), b.float().tolist())]
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def test_forward_wrapper_raises_on_a_failed_launch(monkeypatch):
+    """A non-zero code from the library raises and counts no launch; the
+    wrapper hands it scratch for the channels-last copy, C rounded up to
+    16 bytes of channels."""
+    seen = []
+
+    class Lib:
+        def dafne_deform_im2col(self, *args):
+            seen.append(args[5:10])
+            return 2
+
+    monkeypatch.setattr(K, "_lib", lambda: Lib())
+    monkeypatch.setattr(K, "check_cuda", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros((2, 20, 5, 7), dtype=torch.bfloat16)
+    offsets = torch.zeros((2, 18, 5, 7))
+    before = K.deform_im2col_forward_cuda.launches
+    with pytest.raises(RuntimeError, match="failed with cudaError 2"):
+        K.deform_im2col_forward_cuda(x, offsets)
+    assert K.deform_im2col_forward_cuda.launches == before
+    assert seen == [(2, 20, 5, 7, 1)]
+    assert K.nhwc_channels(20, torch.bfloat16) == 24 and K.nhwc_channels(20, torch.float32) == 20

@@ -20,7 +20,18 @@ read by tracing its apply abstractly (``jax.eval_shape``) with
 Calibration on the same parameters gives JAX's keys and values within
 1e-5 relative (the float32 forwards' drift, ``test_torch_model.py``), and
 a scales JSON written by either package loads in the other.
+
+``int8_conv``'s two CUDA kernels, without a card: the path chosen by shape
+(every site of the four models above goes to the wgmma kernel; the shapes
+that stay on the mma.sync kernel are named), the wrapper raising on a
+failed launch (a stubbed library), and the tile geometry the wrapper hands
+the tensor maps reproducing ``int8_conv_plain`` through a plain emulation
+of the TMA boxes.
 """
+
+import contextlib
+import ctypes
+import types
 
 import numpy as np
 import pytest
@@ -282,3 +293,158 @@ def test_calibration_equals_jax_and_json_crosses(tmp_path):
     slack = Q.calibrate_act_scales(model, [torch.from_numpy(images[:1])], slack=1.5)
     first = Q.calibrate_act_scales(model, [torch.from_numpy(images[:1])])
     assert slack == {k: v * 1.5 for k, v in first.items()}
+
+
+# ---- int8_conv's kernels: the path by shape, the tile geometry ------------------
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_every_int8_site_takes_the_wgmma_kernel(name):
+    """Every site of each model, at min 64 and 256, maps to one kernel:
+    the wgmma one (their channel counts are multiples of 16, their strides
+    1 or 2).  Random weights: only the sites' shapes matter."""
+    cfg = get_cfg()
+    cfg.merge_from_list(MODELS[name] + ["TPU.COMPUTE_DTYPE", "float32"])
+    model = build_model(cfg, device="cpu")
+    modules = dict(model.named_modules())
+    for min_channels in (64, 256):
+        paths = {site: K.int8_conv_path(modules[site].in_channels, modules[site].stride)
+                 for site in Q.int8_site_plan(model, min_channels)}
+        assert paths and set(paths.values()) == {"wgmma"}, (min_channels, paths)
+
+
+#: (C, stride, kernel): x_q rows of C bytes need C a multiple of 16 for a
+#: tensor map, and a run of 128 output pixels spans at most 256 input
+#: columns; the mma.sync kernel takes the rest
+PATHS = [(16, (1, 1), "wgmma"), (64, (2, 2), "wgmma"), (1440, (1, 2), "wgmma"),
+         (67, (1, 1), "mma_sync"), (72, (1, 1), "mma_sync"), (100, (2, 2), "mma_sync"),
+         (8, (1, 1), "mma_sync"), (64, (3, 3), "mma_sync"), (64, (1, 4), "mma_sync")]
+
+
+@pytest.mark.parametrize("c,stride,path", PATHS)
+def test_int8_conv_path_by_shape(c, stride, path):
+    assert K.int8_conv_path(c, stride) == path
+
+
+class _FailingLib:
+    """A stand-in for the built library whose conv launch fails, keeping
+    the geometry each call hands it."""
+
+    def __init__(self, code):
+        self.code, self.geometry = code, []
+
+    def dafne_int8_conv(self, *args):
+        self.geometry.append(list(ctypes.cast(args[6], ctypes.POINTER(ctypes.c_int))[:26]))
+        return self.code
+
+
+def _no_card(monkeypatch, module, lib):
+    """Let a CUDA wrapper run its host code on CPU tensors: the stubbed
+    library, no device checks, no device context, stream 0."""
+    monkeypatch.setattr(module, "_lib", lambda: lib)
+    monkeypatch.setattr(module, "check_cuda", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+
+
+@pytest.mark.parametrize("c,path", [(64, "wgmma"), (72, "mma_sync")])
+def test_int8_conv_wrapper_raises_on_a_failed_launch(monkeypatch, c, path):
+    """A non-zero code from the library raises and counts no launch: no
+    other kernel and no plain version stands in.  The wgmma path gets the
+    tile geometry of ``int8_conv_tiles``."""
+    lib = _FailingLib(700)
+    _no_card(monkeypatch, K, lib)
+    xq = torch.zeros((2, 13, 11, c), dtype=torch.int8)
+    wq = torch.zeros((40, 3, 3, c), dtype=torch.int8)
+    xs, ws = torch.ones(2), torch.ones(40)
+    before = (K.int8_conv_cuda.launches, dict(K.int8_conv_cuda.launches_by_path))
+    with pytest.raises(RuntimeError, match=f"the {path} kernel's launch failed with code 700"):
+        K.int8_conv_cuda(xq, xs, wq, ws, None, [1, 1], [1, 1], [1, 1], torch.bfloat16)
+    assert (K.int8_conv_cuda.launches, K.int8_conv_cuda.launches_by_path) == before
+    (geometry,) = lib.geometry
+    assert geometry[:15] == [2, 13, 11, c, 40, 3, 3, 1, 1, 1, 1, 1, 1, 13, 11]
+    if path == "wgmma":  # 11 whole rows of 11 pixels a tile; boxes of 128 channels
+        tiles = K.int8_conv_tiles(2, (1, 1), 13, 11)
+        assert tiles["tile"] == (11, 11) and tiles["pixel_tiles"] == 4
+        assert geometry[15:] == [1, 11, 11, 128, 11, 11, 1, 1, 1, 1, 1]
+    else:
+        assert geometry[15:] == [0] * 11
+
+
+def _tma_box(xq, origin, box, element_strides):
+    """The box TMA loads from x_q [N, H, W, C] at `origin` (c, w, h, n):
+    ceil(box / stride) elements a dimension, `stride` apart, zeros outside
+    the map -> [box rows x box columns, box channels] as float64."""
+    dims = (xq.shape[3], xq.shape[2], xq.shape[1], xq.shape[0])  # (C, W, H, N)
+    idx = [origin[d] + np.arange(-(-box[d] // element_strides[d])) * element_strides[d]
+           for d in range(4)]
+    ok = [(i >= 0) & (i < dims[d]) for d, i in enumerate(idx)]
+    out = np.zeros([len(i) for i in idx[::-1]], np.float64)  # [n, h, w, c]
+    x = xq.numpy()
+    out[np.ix_(*ok[::-1])] = x[np.ix_(*(i[m] for i, m in zip(idx[::-1], ok[::-1])))]
+    return out[0].reshape(-1, len(idx[0]))
+
+
+def _box_origin(tiles, pixel_tile, r, q, c0, stride, padding, dilation):
+    """((c, w, h, n) coordinates of x_q's box, (ho0, wo0) the tile's first
+    output pixel), as csrc/int8_conv.cu's producer computes them."""
+    bh, bw = tiles["tile"]
+    n, rest = divmod(pixel_tile, tiles["tiles_h"] * tiles["tiles_w"])
+    th, tw = divmod(rest, tiles["tiles_w"])
+    ho0, wo0 = th * bh, tw * bw
+    return (c0, wo0 * stride[1] - padding[1] + q * dilation[1],
+            ho0 * stride[0] - padding[0] + r * dilation[0], n), (ho0, wo0)
+
+
+def _tiled_conv(xq, xs, wq, ws, bias, stride, padding, dilation, out_dtype):
+    """int8_conv as the wgmma kernel computes it, from the wrapper's tile
+    geometry: per pixel tile, per tap and 128-channel slice, the box at
+    the kernel's origin times w_q's slice (channels past C zero), summed exactly;
+    then the epilogue over the tile's contiguous run of the output plane."""
+    n, h, w, c = xq.shape
+    o, kh, kw = wq.shape[:3]
+    ho, wo = K.conv_out_hw(h, w, kh, kw, stride, padding, dilation)
+    tiles = K.int8_conv_tiles(n, stride, ho, wo)
+    bh, bw = tiles["tile"]
+    slices = -(-c // K.WGMMA_TILE_K)
+    wpad = np.zeros((o, kh, kw, slices * K.WGMMA_TILE_K))
+    wpad[..., :c] = wq.numpy()
+    y = torch.zeros((n, o, ho * wo), dtype=out_dtype)
+    for t in range(tiles["pixel_tiles"]):
+        acc = np.zeros((K.WGMMA_TILE_M, o))
+        for r in range(kh):
+            for q in range(kw):
+                for c0 in range(0, slices * K.WGMMA_TILE_K, K.WGMMA_TILE_K):
+                    origin, (ho0, wo0) = _box_origin(tiles, t, r, q, c0, stride, padding,
+                                                     dilation)
+                    a = _tma_box(xq, origin, tiles["box"], tiles["element_strides"])
+                    acc[:len(a)] += a @ wpad[:, r, q, c0:c0 + K.WGMMA_TILE_K].T
+        img = origin[3]
+        valid = min(bw, wo - wo0) if bh == 1 else min(bh, ho - ho0) * bw
+        v = torch.from_numpy(acc[:valid]).to(torch.int32).float() * (xs[img] * ws[None, :])
+        if bias is not None:
+            v = v + bias[None, :]
+        y[img, :, ho0 * wo + wo0:ho0 * wo + wo0 + valid] = v.to(out_dtype).t()
+    return y.reshape(n, o, ho, wo)
+
+
+#: (H, W, stride, padding, dilation): Wo above 128 (two runs of a row, the
+#: second part full) and Wo below it (11 or 6 whole rows a tile)
+TILE_CASES = [(h, w, s, p, 1) for h, w in ((5, 140), (11, 13)) for s in (1, 2) for p in (0, 1)]
+TILE_CASES.append((9, 21, 1, 2, 2))
+
+
+@pytest.mark.parametrize("h,w,stride,pad,dil", TILE_CASES)
+def test_tma_tile_geometry_reproduces_the_conv(h, w, stride, pad, dil):
+    """The boxes, element strides and out-of-range origins the wrapper
+    hands the tensor maps give int8_conv_plain's output bit for bit: C =
+    144 (a second, partly empty slice), O = 40, bias, bf16 out."""
+    rng = np.random.RandomState(h * 100 + w + stride + 7 * pad)
+    c, o = 144, 40
+    xq = torch.from_numpy(rng.randint(-127, 128, (2, h, w, c)).astype(np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (o, 3, 3, c)).astype(np.int8))
+    xs = torch.from_numpy(rng.uniform(1e-3, 1e-2, 2).astype(np.float32))
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, o).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32))
+    args = (xq, xs, wq, ws, bias, (stride, stride), (pad, pad), (dil, dil), torch.bfloat16)
+    want = K.int8_conv_plain(*args)
+    assert torch.equal(_tiled_conv(*args), want)
